@@ -1,0 +1,695 @@
+"""Two-phase solver API: ``prepare(A) -> PreparedSolver``, then
+``prepared.solve(b | B)`` — setup amortized across right-hand sides.
+
+``prepare`` runs Algorithm 1 step 1 (partition) and the b-independent half
+of 2–3 (the QR factors W_j, R_j — or pseudoinverse + dense projector for
+classical APC) exactly once; every subsequent ``solve(b)`` performs only the
+O(n²) substitution plus the consensus iteration.
+
+``solve`` accepts one RHS ``(m,)`` or a column batch ``(m, k)``; the batched
+form iterates all k systems at once — the projector application becomes
+(J, p, n) × (J, n, k) products.
+
+This slice of the port covers the dense path with the consensus methods
+(apc, dapc). Everything else the reference reaches raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core import apc, consensus, dapc, projections
+from repro_torch.core import spectra as spectra_mod
+from repro_torch.core.partition import (
+    BlockMode,
+    PartitionPlan,
+    block_rhs,
+    partition_matrix,
+)
+from repro_torch.device import resolve_device, synchronize
+from repro_torch.sparse.matrix import COOMatrix, PlanMixer, RowMixer
+
+METHODS = ("apc", "dapc", "dgd", "cgnr")
+
+# ``prepare(..., mode=...)`` accepts the dense block modes (tall/wide/auto)
+# plus the execution-path selectors: "dense" forces the densified path,
+# "matfree" the sparse-operator path, and "auto" picks from the nnz/memory
+# estimate below.
+MATFREE_AUTO_DENSITY = 0.01  # auto never goes matfree below 99% sparsity
+MATFREE_AUTO_BYTES = 64 * 1024 * 1024  # ... or when dense blocks fit easily
+
+_MATFREE_TODO = "ROADMAP Queue 1 item 4 (matrix-free path)"
+_BASELINES_TODO = "ROADMAP Queue 1 item 5 (baselines core/cg.py and core/dgd.py)"
+_MESH_TODO = "ROADMAP Queue 1 item 8 (multi-device)"
+_SESSION_TODO = "ROADMAP Queue 1 item 6 (streams, health and diagnostics)"
+
+
+@dataclasses.dataclass(frozen=True)
+class PrepareConfig:
+    """The single source of truth for ``prepare()``'s keyword surface.
+
+    ``prepare(A, PrepareConfig(...))`` and ``prepare(A, method=..., ...)``
+    are equivalent; the one-shot ``solve()`` derives its prepare/solve kwarg
+    split from these fields. Fields mirror the reference's, plus ``device``.
+    """
+
+    method: str = "dapc"
+    num_blocks: int = 8
+    mode: str = "auto"  # BlockMode | "dense" | "matfree"
+    dtype: Any = None
+    gamma: float = 1.0
+    eta: float = 0.9
+    materialize_p: bool = True
+    use_kernels: bool = False
+    block_shape: tuple[int, int] | None = None
+    inner_iters: int | None = None
+    inner_tol: float = 1e-6
+    matfree_threshold_bytes: int | None = None
+    balance: bool = True
+    gram_solver: str = "auto"
+    warm_start: bool = False
+    mesh: Any = None
+    block_axes: tuple[str, ...] = ("data",)
+    partition: str = "uniform"  # "uniform" | "cost_aware" row->block plan
+    dynamics: str = "global"  # "global" | "per_block" (γ_j, η_j) dynamics
+    device: Any = None  # None = "cuda"
+
+    def kwargs(self) -> dict:
+        """The equivalent ``prepare(A, **kwargs)`` keyword dict."""
+        return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
+
+    @classmethod
+    def field_names(cls) -> tuple[str, ...]:
+        """Every keyword ``prepare`` consumes (the derived split's base)."""
+        return tuple(f.name for f in dataclasses.fields(cls))
+
+
+@dataclasses.dataclass(frozen=True)
+class SolveOptions:
+    """The single source of truth for ``solve()``'s keyword surface.
+
+    ``prep.solve(b, SolveOptions(...))`` and ``prep.solve(b, num_epochs=...,
+    ...)`` are equivalent (the options object is accepted positionally where
+    ``num_epochs`` sits). ``None`` means "unset — use the solver's default";
+    only set fields are forwarded. ``method_kwargs`` carries method-specific
+    extras (``avg_every``/``compress``/``xbar0``) verbatim.
+    """
+
+    num_epochs: int = 100
+    tol: float | None = None
+    gamma: float | None = None
+    eta: float | None = None
+    x0: Any = None  # (n,) | (n, k) | (x0, mask) warm start (consensus only)
+    x_ref: Any = None
+    inner_iters: int | None = None  # matfree paths only
+    block_history: bool | None = None  # per-block residual diagnostics
+    dynamics: str | None = None  # "global" | "per_block" override (consensus)
+    method_kwargs: dict = dataclasses.field(default_factory=dict)
+
+    def kwargs(self) -> dict:
+        """The equivalent ``solve(b, **kwargs)`` keyword dict (set fields
+        only; ``num_epochs`` always — it is the positional slot)."""
+        out: dict = {}
+        for f in dataclasses.fields(self):
+            if f.name == "method_kwargs":
+                continue
+            value = getattr(self, f.name)
+            if f.name == "num_epochs" or value is not None:
+                out[f.name] = value
+        out.update(self.method_kwargs)
+        return out
+
+    @classmethod
+    def field_names(cls) -> tuple[str, ...]:
+        """Every keyword ``solve`` consumes (excludes ``method_kwargs``)."""
+        return tuple(
+            f.name for f in dataclasses.fields(cls) if f.name != "method_kwargs"
+        )
+
+
+def _density(A) -> float:
+    if isinstance(A, COOMatrix):
+        m, n = A.shape
+        return A.nnz / float(m * n)
+    A = np.asarray(A)
+    return np.count_nonzero(A) / float(A.size)
+
+
+def resolve_path(
+    A,
+    num_blocks: int,
+    mode: str,
+    matfree_threshold_bytes: int | None = None,
+) -> str:
+    """Pick "dense" vs "matfree" from the mode plus an nnz/memory estimate.
+
+    mode="auto" goes matfree only when BOTH hold: density <= 1% and the
+    dense path's resident arrays (blocks + factors, ~2 copies of (J, p, n))
+    would exceed the threshold (default 64 MiB). ``prepare`` raises
+    ``NotImplementedError`` on a "matfree" answer until that path is ported.
+    """
+    if mode in ("tall", "wide", "dense"):
+        return "dense"
+    if mode == "matfree":
+        return "matfree"
+    if mode != "auto":
+        raise ValueError(
+            f"mode must be tall/wide/auto/dense/matfree, got {mode!r}"
+        )
+    threshold = (
+        MATFREE_AUTO_BYTES if matfree_threshold_bytes is None
+        else matfree_threshold_bytes
+    )
+    m, n = A.shape
+    p = -(-m // num_blocks)
+    dense_bytes = 2 * num_blocks * p * n * 4  # blocks + factors, f32
+    if _density(A) <= MATFREE_AUTO_DENSITY and dense_bytes > threshold:
+        return "matfree"
+    return "dense"
+
+
+@dataclasses.dataclass(frozen=True)
+class ColumnResult:
+    """Per-column view of a batched solve."""
+
+    index: int  # column position in the (m, k) batch
+    x: np.ndarray  # (n,)
+    residual_sq: float  # final ||A x − b_i||²
+    iterations: int  # epochs until residual_sq <= tol² (num_epochs if never)
+    converged: bool  # True iff tolerance reached within the epoch budget
+
+
+@dataclasses.dataclass(frozen=True)
+class SolveResult:
+    """A solve's result on the host: ``x`` and ``history`` are numpy."""
+
+    x: np.ndarray  # (n,) — or (n, k) for a batched solve
+    method: str
+    mode: str
+    num_blocks: int
+    num_epochs: int
+    history: dict[str, Any]  # per-epoch metrics (mse / residual_sq)
+    wall_seconds: float
+    gamma: float | None = None
+    eta: float | None = None
+    num_rhs: int = 1
+
+    def _last(self, h):
+        v = np.asarray(h[-1])
+        return float(v) if v.ndim == 0 else v
+
+    @property
+    def final_mse(self):
+        h = self.history.get("mse")
+        return self._last(h) if h is not None else None
+
+    @property
+    def final_residual(self):
+        return self._last(self.history["residual_sq"])
+
+    def _residual_trace(self) -> np.ndarray:
+        """Per-epoch residual_sq as (num_epochs, k) — k=1 for a single RHS."""
+        h = self.history.get("residual_sq")
+        if h is None:
+            raise ValueError(f"method {self.method!r} recorded no residual history")
+        trace = np.asarray(h)
+        return trace[:, None] if trace.ndim == 1 else trace
+
+    def iterations_to_tol(self, tol: float) -> np.ndarray:
+        """Per-column epochs needed to reach ``residual_sq <= tol²``;
+        columns that never reach it report ``num_epochs``."""
+        trace = self._residual_trace()  # (E, k)
+        reached = trace <= float(tol) ** 2
+        return np.where(
+            reached.any(axis=0), reached.argmax(axis=0) + 1, self.num_epochs
+        ).astype(np.int64)
+
+    def per_column(self, tol: float | None = None) -> list[ColumnResult]:
+        """Scatter a (possibly batched) result into per-column records.
+
+        ``tol=None`` skips the tolerance sweep: every column reports the
+        full ``num_epochs`` with ``converged`` judged against the final
+        residual being finite.
+        """
+        x = self.x if self.x.ndim == 2 else self.x[:, None]
+        trace = self._residual_trace()
+        final = trace[-1]
+        if tol is None:
+            iters = np.full(x.shape[1], self.num_epochs, dtype=np.int64)
+            conv = np.isfinite(final)
+        else:
+            iters = self.iterations_to_tol(tol)
+            conv = iters < self.num_epochs
+            conv |= final <= float(tol) ** 2  # converged exactly at the budget
+        return [
+            ColumnResult(
+                index=i,
+                x=np.asarray(x[:, i]),
+                residual_sq=float(final[i]),
+                iterations=int(iters[i]),
+                converged=bool(conv[i]),
+            )
+            for i in range(x.shape[1])
+        ]
+
+    def assess_health(self, tol: float | None = None, watchdog=None):
+        raise NotImplementedError(
+            f"assess_health needs core/guard.py, not ported yet: {_SESSION_TODO}"
+        )
+
+
+def _to_numpy(tree):
+    """Tensors of a (nested) history dict -> numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy()
+
+
+@dataclasses.dataclass
+class PreparedSolver:
+    """Partition + per-block factors + projector, cached on one device.
+
+    Produced by ``prepare``; reusable (and read-only) across any number of
+    ``solve`` calls. ``num_solves`` counts them.
+    """
+
+    blocks: torch.Tensor  # (J, p, n)
+    mode: str
+    mixer: Any  # RowMixer: blocks new b's with the same padding rows as A
+    method: str
+    gamma: float
+    eta: float
+    materialize_p: bool
+    use_kernels: bool
+    factors: tuple  # method-specific cached setup (see prepare())
+    projector: tuple  # ("dense"|"implicit"|"kernels", operand tensor) or ()
+    setup_seconds: float
+    partition: str = "uniform"
+    dynamics: str = "global"
+    plan: Any = dataclasses.field(default=None, repr=False)  # PartitionPlan
+    block_gamma_weights: Any = dataclasses.field(default=None, repr=False)
+    block_eta_weights: Any = dataclasses.field(default=None, repr=False)
+    block_spectra: Any = dataclasses.field(default=None, repr=False)
+    num_solves: int = 0
+
+    path = "dense"
+
+    @property
+    def device(self) -> torch.device:
+        return self.blocks.device
+
+    @property
+    def num_blocks(self) -> int:
+        return self.blocks.shape[0]
+
+    @property
+    def num_cols(self) -> int:
+        return self.blocks.shape[2]
+
+    @property
+    def memory_bytes(self) -> int:
+        """Device-resident bytes of the cached state (blocks + factors +
+        projector), deduplicated by storage address."""
+        tensors = [self.blocks, *self.factors]
+        if self.projector:
+            tensors.append(self.projector[1])
+        seen: set[int] = set()
+        total = 0
+        for t in tensors:
+            if isinstance(t, torch.Tensor) and t.data_ptr() not in seen:
+                seen.add(t.data_ptr())
+                total += t.numel() * t.element_size()
+        return total
+
+    def _resolve_dynamics(self, dynamics: str | None) -> bool:
+        """Resolve a solve-time ``dynamics`` override against the prepared
+        state; returns True when the solve runs per-block (γ_j, η_j)."""
+        mode = self.dynamics if dynamics is None else dynamics
+        if mode not in ("global", "per_block"):
+            raise ValueError(
+                f"dynamics must be 'global' or 'per_block', got {mode!r}"
+            )
+        if mode == "global":
+            return False
+        if self.block_eta_weights is None:
+            raise ValueError(
+                "dynamics='per_block' needs per-block spectra — prepare "
+                "with dynamics='per_block' to estimate them"
+            )
+        return True
+
+    def _dynamics_operands(self, gamma, eta, per_block: bool):
+        """(γ, η) device operands: 0-d tensors, or mean-preserving per-block
+        vectors scaled by the prepared spectral weights."""
+        dt, dev = self.blocks.dtype, self.device
+        if not per_block:
+            return (
+                torch.tensor(float(gamma), dtype=dt, device=dev),
+                torch.tensor(float(eta), dtype=dt, device=dev),
+            )
+        gv = np.asarray(self.block_gamma_weights, np.float64) * float(gamma)
+        ev = np.asarray(self.block_eta_weights, np.float64) * float(eta)
+        return (
+            torch.as_tensor(gv, dtype=dt, device=dev),
+            torch.as_tensor(ev, dtype=dt, device=dev),
+        )
+
+    def _solve_phase(self, bvecs, gamma, eta, num_epochs, ref, xbar0, x0, kwargs):
+        """Substitution + consensus for the apc/dapc methods.
+
+        ``x0`` warm start: the per-block initial solutions become the
+        projection of the prediction onto each block's solution set,
+        x_j(0) = x0 + A_j⁺(b_j − A_j x0) — the substitution is linear in its
+        RHS, so this reuses the cached factors on the shifted residual. The
+        masked form (x0, mask) zeroes cold columns' shift.
+        """
+        if x0 is not None:
+            xq, mk = x0 if isinstance(x0, tuple) else (x0, None)
+            if mk is not None:
+                xq = torch.where(mk, xq, torch.zeros((), dtype=xq.dtype, device=xq.device))
+            bv_eff = bvecs - self.blocks @ xq
+        else:
+            xq, bv_eff = None, bvecs
+        if self.method == "dapc":
+            Ws, Rs = self.factors
+            x0s = dapc.initial_from_factors(Ws, Rs, bv_eff, self.mode, self.use_kernels)
+        else:
+            x0s = apc.initial_from_pinv(self.factors[0], bv_eff)
+        if xq is not None:
+            x0s = x0s + xq
+        kind, operand = self.projector
+        if kind == "dense":
+            apply_fn = apc.make_apply(operand)
+        else:
+            apply_fn = dapc.make_apply(operand, False, use_kernels=kind == "kernels")
+        return consensus.run_consensus(
+            x0s, apply_fn, gamma, eta, num_epochs,
+            x_ref=ref, blocks=self.blocks, bvecs=bvecs, xbar0=xbar0, **kwargs,
+        )
+
+    def _operand(self, arr):
+        """A host array (or tensor) as a tensor in the solver's dtype/device."""
+        return torch.as_tensor(np.asarray(arr)).to(device=self.device, dtype=self.blocks.dtype)
+
+    def solve(
+        self,
+        b: np.ndarray,  # (m,) single RHS or (m, k) column batch
+        num_epochs: int = 100,
+        gamma: float | None = None,
+        eta: float | None = None,
+        x_ref: np.ndarray | None = None,
+        x0: np.ndarray | tuple | None = None,
+        dynamics: str | None = None,
+        **kwargs,
+    ) -> SolveResult:
+        """Solve A x = b against the cached factors (Algorithm 1 steps 5–8
+        plus the per-b substitution); never re-partitions or re-factorizes.
+
+        ``x0`` warm-starts the whole consensus state at a predicted solution
+        (``(n,)`` / ``(n, k)``, or the masked pair ``(x0, mask)``). kwargs are
+        forwarded to ``run_consensus`` (``avg_every``/``compress``/``xbar0``/
+        ``tol``/``block_history``). ``dynamics`` overrides the prepared
+        default per solve. ``num_epochs`` may be a ``SolveOptions``.
+
+        The right-hand side moves to the device once per solve. The result's
+        ``x`` and ``history`` are numpy; ``wall_seconds`` is read after the
+        device has finished.
+        """
+        if isinstance(num_epochs, SolveOptions):
+            return self.solve(b, **num_epochs.kwargs())
+        gamma = self.gamma if gamma is None else gamma
+        eta = self.eta if eta is None else eta
+        per_block = self._resolve_dynamics(dynamics)
+        b = np.asarray(b)
+        batched = b.ndim == 2
+        dev, dt = self.device, self.blocks.dtype
+        bvecs = block_rhs(self.mixer, b, dt, dev)
+        ref = None if x_ref is None else self._operand(x_ref)
+        xbar0 = kwargs.pop("xbar0", None)
+        if xbar0 is not None:
+            xbar0 = self._operand(xbar0)
+        warm = None
+        if x0 is not None:
+            if isinstance(x0, tuple):
+                arr, mask = x0
+                warm = (self._operand(arr), torch.as_tensor(np.asarray(mask, bool), device=dev))
+            else:
+                warm = self._operand(x0)
+
+        t0 = time.perf_counter()
+        gamma_op, eta_op = self._dynamics_operands(gamma, eta, per_block)
+        x, hist = self._solve_phase(
+            bvecs, gamma_op, eta_op, num_epochs, ref, xbar0, warm, kwargs
+        )
+        synchronize(dev)
+        wall = time.perf_counter() - t0
+        self.num_solves += 1
+
+        return SolveResult(
+            x=x.detach().cpu().numpy(),
+            method=self.method,
+            mode=self.mode,
+            num_blocks=self.num_blocks,
+            num_epochs=num_epochs,
+            history=_to_numpy(hist),
+            wall_seconds=wall,
+            gamma=gamma,
+            eta=eta,
+            num_rhs=b.shape[1] if batched else 1,
+        )
+
+    def open_session(self, **kwargs):
+        raise NotImplementedError(
+            f"streaming sessions (core/session.py) are not ported yet: {_SESSION_TODO}"
+        )
+
+    # -- checkpoint serialization -------------------------------------------
+
+    def to_state(self) -> tuple[dict, dict]:
+        """Everything needed to rebuild this solver without re-factorizing:
+        ``(arrays, meta)`` with plain numpy arrays and JSON-able metadata, in
+        the reference package's format. When the projector operand aliases
+        a factor (implicit/kernels dapc, classical apc) only the reference
+        is recorded, never a second copy."""
+        arrays: dict = {"blocks": self.blocks.detach().cpu().numpy()}
+        factors_meta: list[dict] = []
+        for i, f in enumerate(self.factors):
+            arrays[f"factor_{i}"] = f.detach().cpu().numpy()
+            factors_meta.append({"kind": "array", "key": f"factor_{i}"})
+        projector_meta = None
+        if self.projector:
+            kind, operand = self.projector
+            ref = next(
+                (i for i, f in enumerate(self.factors) if f is operand), None
+            )
+            if ref is None:
+                arrays["projector"] = operand.detach().cpu().numpy()
+                projector_meta = {"kind": kind, "key": "projector"}
+            else:
+                projector_meta = {"kind": kind, "factor": ref}
+        if self.mixer.g is not None:
+            arrays["mixer_g"] = np.asarray(self.mixer.g)
+        mixer_meta = {
+            "m": int(self.mixer.m),
+            "num_blocks": int(self.mixer.num_blocks),
+            "p": int(self.mixer.p),
+            "kind": "uniform",
+        }
+        if isinstance(self.mixer, PlanMixer):
+            mixer_meta["kind"] = "plan"
+            arrays["mixer_gather"] = np.asarray(self.mixer.gather)
+        arrays.update(spectra_mod.dynamics_arrays(self))
+        meta = {
+            "path": "dense",
+            "method": self.method,
+            "mode": self.mode,
+            "gamma": float(self.gamma),
+            "eta": float(self.eta),
+            "materialize_p": bool(self.materialize_p),
+            "use_kernels": bool(self.use_kernels),
+            "setup_seconds": float(self.setup_seconds),
+            "mixer": mixer_meta,
+            "factors": factors_meta,
+            "projector": projector_meta,
+            **spectra_mod.dynamics_meta(self),
+        }
+        return arrays, meta
+
+    @classmethod
+    def from_state(cls, arrays, meta: dict, device=None) -> "PreparedSolver":
+        """Rebuild a solver on ``device`` from ``to_state`` output — this
+        package's or the JAX reference's (same format). Arrays keep their
+        dtype; a projector that aliases a factor stays one tensor."""
+        dev = resolve_device(device)
+        if meta.get("path", "dense") != "dense":
+            raise NotImplementedError(
+                f"restoring a {meta['path']!r} solver: {_MATFREE_TODO}"
+            )
+        if meta["method"] not in ("apc", "dapc"):
+            raise NotImplementedError(
+                f"method {meta['method']!r} is not ported yet: {_BASELINES_TODO}"
+            )
+
+        def tensor(key):  # a read-only or strided array is copied first
+            return torch.from_numpy(np.require(arrays[key], requirements="CW")).to(dev)
+
+        factors = tuple(
+            tensor(spec["key"]) if spec["kind"] == "array" else spec["value"]
+            for spec in meta["factors"]
+        )
+        projector: tuple = ()
+        spec = meta["projector"]
+        if spec is not None:
+            operand = (
+                factors[spec["factor"]] if "factor" in spec else tensor(spec["key"])
+            )
+            projector = (spec["kind"], operand)
+        mx = meta["mixer"]
+        g = np.asarray(arrays["mixer_g"]) if "mixer_g" in arrays else None
+        if mx.get("kind", "uniform") == "plan":
+            mixer: Any = PlanMixer(
+                m=int(mx["m"]), num_blocks=int(mx["num_blocks"]),
+                p=int(mx["p"]), gather=np.asarray(arrays["mixer_gather"]),
+                g=g,
+            )
+        else:
+            mixer = RowMixer(
+                m=int(mx["m"]), num_blocks=int(mx["num_blocks"]),
+                p=int(mx["p"]), g=g,
+            )
+        return cls(
+            blocks=tensor("blocks"),
+            mode=meta["mode"],
+            mixer=mixer,
+            method=meta["method"],
+            gamma=meta["gamma"],
+            eta=meta["eta"],
+            materialize_p=meta["materialize_p"],
+            use_kernels=meta["use_kernels"],
+            factors=factors,
+            projector=projector,
+            setup_seconds=meta["setup_seconds"],
+            **spectra_mod.dynamics_state(arrays, meta),
+        )
+
+
+def prepare(
+    A,  # dense (m, n) array or host COOMatrix
+    method: str | PrepareConfig = "dapc",
+    num_blocks: int = 8,
+    mode: str = "auto",  # BlockMode | "dense" | "matfree"
+    dtype=None,
+    gamma: float = 1.0,
+    eta: float = 0.9,
+    materialize_p: bool = True,
+    use_kernels: bool = False,
+    block_shape: tuple[int, int] | None = None,
+    inner_iters: int | None = None,
+    inner_tol: float = 1e-6,
+    matfree_threshold_bytes: int | None = None,
+    balance: bool = True,
+    gram_solver: str = "auto",
+    warm_start: bool = False,
+    mesh=None,
+    block_axes: tuple[str, ...] = ("data",),
+    partition: str = "uniform",
+    dynamics: str = "global",
+    device=None,
+) -> PreparedSolver:
+    """Algorithm 1 steps 1–4, b-independent: partition A, factorize every
+    block, build the projector. Returns the reusable PreparedSolver on
+    ``device`` (``None`` = the card; ``"cpu"`` must be asked for).
+
+    ``method`` may be a ``PrepareConfig``. ``dtype=None`` gives float32
+    blocks and factors, as the x64-off reference does; an explicit dtype is
+    honoured. ``block_shape``/``inner_iters``/``inner_tol``/``balance``/
+    ``gram_solver``/``warm_start`` belong to the matrix-free path.
+
+    Cached per method (dense path):
+      * dapc — (W_j, R_j) reduced-QR factors (paper eqs. 1/4);
+      * apc  — (A_j⁺, P_j) pseudoinverse + dense projector.
+    dgd/cgnr, ``mesh=`` and the matrix-free path raise NotImplementedError.
+    """
+    if isinstance(method, PrepareConfig):
+        return prepare(A, **method.kwargs())
+    if method not in METHODS:
+        raise ValueError(f"method must be one of {METHODS}")
+    if method not in ("apc", "dapc"):
+        raise NotImplementedError(
+            f"method={method!r} is not ported yet: {_BASELINES_TODO}"
+        )
+    if partition not in ("uniform", "cost_aware"):
+        raise ValueError(
+            f"partition must be 'uniform' or 'cost_aware', got {partition!r}"
+        )
+    if dynamics not in ("global", "per_block"):
+        raise ValueError(
+            f"dynamics must be 'global' or 'per_block', got {dynamics!r}"
+        )
+    if mesh is not None:
+        raise NotImplementedError(f"mesh= is not ported yet: {_MESH_TODO}")
+    dev = resolve_device(device)
+    plan = (
+        PartitionPlan.cost_aware(A, num_blocks)
+        if partition == "cost_aware" else None
+    )
+    if resolve_path(A, num_blocks, mode, matfree_threshold_bytes) == "matfree":
+        raise NotImplementedError(
+            f"this prepare resolved the matrix-free path (mode={mode!r}), "
+            f"which is not ported yet: {_MATFREE_TODO}; pass mode='dense'"
+        )
+    if isinstance(A, COOMatrix):
+        A = A.to_dense()  # the dense path's per-block decompress, up front
+    block_mode: BlockMode = mode if mode in ("tall", "wide") else "auto"
+    t0 = time.perf_counter()
+    blocks, resolved, mixer = partition_matrix(
+        A, num_blocks, block_mode, dtype, plan=plan, device=dev
+    )
+
+    if method == "dapc":
+        Ws, Rs = dapc.qr_blocks(blocks, resolved)
+        factors: tuple = (Ws, Rs)
+        if materialize_p:
+            # paper-faithful dense P_j, built ONCE here (not per solve)
+            projector: tuple = ("dense", projections.materialize(Ws))
+        elif use_kernels:
+            projector = ("kernels", Ws)
+        else:
+            projector = ("implicit", Ws)
+    else:
+        pinvs, Ps = apc.classical_factors(blocks, resolved)
+        factors = (pinvs, Ps)
+        projector = ("dense", Ps)
+    block_gamma_w = block_eta_w = spectra_d = None
+    if dynamics == "per_block":
+        spectra_d = spectra_mod.block_spectra_dense(
+            blocks.detach().cpu().numpy(), plan=plan
+        )
+        block_gamma_w, block_eta_w = spectra_mod.derive_dynamics(spectra_d)
+    synchronize(dev)
+    setup_seconds = time.perf_counter() - t0
+
+    return PreparedSolver(
+        blocks=blocks,
+        mode=resolved,
+        mixer=mixer,
+        method=method,
+        gamma=gamma,
+        eta=eta,
+        materialize_p=materialize_p,
+        use_kernels=use_kernels,
+        factors=factors,
+        projector=projector,
+        setup_seconds=setup_seconds,
+        partition=partition,
+        dynamics=dynamics,
+        plan=plan,
+        block_gamma_weights=block_gamma_w,
+        block_eta_weights=block_eta_w,
+        block_spectra=spectra_d,
+    )
