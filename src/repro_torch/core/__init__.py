@@ -1,5 +1,6 @@
 """The paper's primary contribution, ported to PyTorch: (Decomposed)
-Accelerated Projection-Based Consensus solvers on the dense path."""
+Accelerated Projection-Based Consensus solvers on the dense and the
+matrix-free paths."""
 from repro_torch.core.partition import (
     Partition,
     PartitionPlan,
@@ -8,7 +9,11 @@ from repro_torch.core.partition import (
     partition_system,
     resolve_mode,
 )
-from repro_torch.core.spectra import block_spectra_dense, derive_dynamics
+from repro_torch.core.spectra import (
+    block_spectra_dense,
+    block_spectra_matfree,
+    derive_dynamics,
+)
 from repro_torch.core.solver_api import (
     ColumnResult,
     PrepareConfig,
@@ -19,6 +24,7 @@ from repro_torch.core.solver_api import (
     resolve_path,
     solve,
 )
+from repro_torch.core.matfree import MatrixFreePreparedSolver, prepare_matfree
 from repro_torch.core.apc import solve_apc, setup_classical, classical_factors
 from repro_torch.core.dapc import (
     solve_dapc,
@@ -38,6 +44,7 @@ __all__ = [
     "Partition",
     "PartitionPlan",
     "block_spectra_dense",
+    "block_spectra_matfree",
     "derive_dynamics",
     "evaluate_candidates",
     "partition_system",
@@ -49,7 +56,9 @@ __all__ = [
     "ColumnResult",
     "PrepareConfig",
     "PreparedSolver",
+    "MatrixFreePreparedSolver",
     "prepare",
+    "prepare_matfree",
     "resolve_path",
     "solve",
     "solve_apc",

@@ -10,9 +10,10 @@ O(n²) substitution plus the consensus iteration.
 form iterates all k systems at once — the projector application becomes
 (J, p, n) × (J, n, k) products.
 
-This slice of the port covers the dense path with the consensus methods
-(apc, dapc). Everything else the reference reaches raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+The port covers the consensus methods (apc, dapc) on the dense path and on
+the matrix-free path (``repro_torch.core.matfree``, picked by ``mode``).
+Everything else the reference reaches raises ``NotImplementedError`` naming
+the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -43,7 +44,6 @@ METHODS = ("apc", "dapc", "dgd", "cgnr")
 MATFREE_AUTO_DENSITY = 0.01  # auto never goes matfree below 99% sparsity
 MATFREE_AUTO_BYTES = 64 * 1024 * 1024  # ... or when dense blocks fit easily
 
-_MATFREE_TODO = "ROADMAP Queue 1 item 4 (matrix-free path)"
 _BASELINES_TODO = "ROADMAP Queue 1 item 5 (baselines core/cg.py and core/dgd.py)"
 _MESH_TODO = "ROADMAP Queue 1 item 8 (multi-device)"
 _SESSION_TODO = "ROADMAP Queue 1 item 6 (streams, health and diagnostics)"
@@ -150,8 +150,7 @@ def resolve_path(
 
     mode="auto" goes matfree only when BOTH hold: density <= 1% and the
     dense path's resident arrays (blocks + factors, ~2 copies of (J, p, n))
-    would exceed the threshold (default 64 MiB). ``prepare`` raises
-    ``NotImplementedError`` on a "matfree" answer until that path is ported.
+    would exceed the threshold (default 64 MiB).
     """
     if mode in ("tall", "wide", "dense"):
         return "dense"
@@ -527,8 +526,10 @@ class PreparedSolver:
         dtype; a projector that aliases a factor stays one tensor."""
         dev = resolve_device(device)
         if meta.get("path", "dense") != "dense":
-            raise NotImplementedError(
-                f"restoring a {meta['path']!r} solver: {_MATFREE_TODO}"
+            raise ValueError(
+                f"this state is of a {meta['path']!r} (matrix-free) solver: "
+                "restore it with MatrixFreePreparedSolver.from_state "
+                "(repro_torch.core.matfree)"
             )
         if meta["method"] not in ("apc", "dapc"):
             raise NotImplementedError(
@@ -600,25 +601,43 @@ def prepare(
     partition: str = "uniform",
     dynamics: str = "global",
     device=None,
-) -> PreparedSolver:
+) -> PreparedSolver:  # | repro_torch.core.matfree.MatrixFreePreparedSolver
     """Algorithm 1 steps 1–4, b-independent: partition A, factorize every
-    block, build the projector. Returns the reusable PreparedSolver on
-    ``device`` (``None`` = the card; ``"cpu"`` must be asked for).
+    block, build the projector. Returns the reusable solver on ``device``
+    (``None`` = the card; ``"cpu"`` must be asked for).
 
     ``method`` may be a ``PrepareConfig``. ``dtype=None`` gives float32
     blocks and factors, as the x64-off reference does; an explicit dtype is
-    honoured. ``block_shape``/``inner_iters``/``inner_tol``/``balance``/
-    ``gram_solver``/``warm_start`` belong to the matrix-free path.
+    honoured.
+
+    ``mode`` selects the execution path on top of the block regime:
+    tall/wide/auto keep their dense-path meaning; ``"dense"`` forces the
+    densified path; ``"matfree"`` returns a ``MatrixFreePreparedSolver``
+    (blocked-ELL operator + fused projection epochs, never densifying a
+    block); ``"auto"`` also picks matfree when ``resolve_path`` says the
+    dense blocks would not pay off, except for dgd/cgnr, which stay dense.
+    ``block_shape``/``inner_iters``/``inner_tol``/``balance``/
+    ``gram_solver``/``warm_start`` apply to the matrix-free path only (see
+    ``repro_torch.core.matfree.prepare_matfree``).
 
     Cached per method (dense path):
       * dapc — (W_j, R_j) reduced-QR factors (paper eqs. 1/4);
       * apc  — (A_j⁺, P_j) pseudoinverse + dense projector.
-    dgd/cgnr, ``mesh=`` and the matrix-free path raise NotImplementedError.
+    dgd/cgnr and ``mesh=`` raise NotImplementedError.
     """
     if isinstance(method, PrepareConfig):
         return prepare(A, **method.kwargs())
     if method not in METHODS:
         raise ValueError(f"method must be one of {METHODS}")
+    path = resolve_path(A, num_blocks, mode, matfree_threshold_bytes)
+    if path == "matfree" and method not in ("apc", "dapc"):
+        if mode != "auto":
+            raise ValueError(
+                f"mode='matfree' supports the consensus methods "
+                f"('apc', 'dapc'); got method={method!r} — use one of "
+                "those, or mode='dense'/'auto' for this method"
+            )
+        path = "dense"  # auto must not turn a dgd/cgnr solve into an error
     if method not in ("apc", "dapc"):
         raise NotImplementedError(
             f"method={method!r} is not ported yet: {_BASELINES_TODO}"
@@ -638,10 +657,17 @@ def prepare(
         PartitionPlan.cost_aware(A, num_blocks)
         if partition == "cost_aware" else None
     )
-    if resolve_path(A, num_blocks, mode, matfree_threshold_bytes) == "matfree":
-        raise NotImplementedError(
-            f"this prepare resolved the matrix-free path (mode={mode!r}), "
-            f"which is not ported yet: {_MATFREE_TODO}; pass mode='dense'"
+    if path == "matfree":
+        from repro_torch.core import matfree  # deferred: matfree imports SolveResult
+
+        kw = {} if block_shape is None else {"block_shape": tuple(block_shape)}
+        return matfree.prepare_matfree(
+            A, method=method, num_blocks=num_blocks, dtype=dtype,
+            gamma=gamma, eta=eta, inner_iters=inner_iters,
+            inner_tol=inner_tol, use_kernels=use_kernels, balance=balance,
+            gram_solver=gram_solver, warm_start=warm_start,
+            partition=partition, dynamics=dynamics, plan=plan,
+            device=dev, **kw,
         )
     if isinstance(A, COOMatrix):
         A = A.to_dense()  # the dense path's per-block decompress, up front

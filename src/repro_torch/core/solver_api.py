@@ -53,9 +53,13 @@ def solve(
     setup that the prepare/solve split amortizes away. ``b`` may be one RHS
     (m,) or a column batch (m, k). ``device=None`` runs on the card.
 
+    ``A`` may be a host ``COOMatrix``; ``mode="matfree"`` (or ``"auto"``
+    past the nnz/memory threshold) takes the matrix-free path.
+
     kwargs are forwarded to prepare when they name one of its fields
-    (``materialize_p=False`` / ``use_kernels=True`` ...) and to the solve
-    otherwise (``tol=``, ``block_history=`` ...).
+    (``materialize_p=False`` / ``use_kernels=True`` / ``gram_solver=`` /
+    ``inner_iters=`` ...) and to the solve otherwise (``tol=``,
+    ``block_history=`` ...).
     """
     prep_kw = {k: kwargs.pop(k) for k in _PREPARE_KWARGS if k in kwargs}
     prep = prepare(

@@ -24,12 +24,13 @@ Gram/QR products. Weights are clipped and renormalized to mean 1, so η̄
 equals the user's η exactly and the global tuning story is unchanged.
 
 Host-side numpy, a copy of the JAX package's module (the port never imports
-it). The matrix-free estimator ``block_spectra_matfree`` arrives with the
-matrix-free path (ROADMAP Queue 1, item 4).
+it), except the matrix-free estimator ``block_spectra_matfree``, whose
+power iteration runs on the device through the operator's ``gram_mv``.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def _ramp(p: int) -> np.ndarray:
@@ -61,6 +62,39 @@ def block_spectra_dense(blocks, plan=None, iters: int = 24) -> dict:
         if plan is not None
         else np.full(J, float(p))
     )
+    return {
+        "lam_max": lam,
+        "trace": trace,
+        "rows": rows,
+        "stable_rank": trace / np.maximum(lam, 1e-300),
+    }
+
+
+def block_spectra_matfree(op, iters: int = 24) -> dict:
+    """Spectral summary of a ``PartitionedBSR``'s block Grams.
+
+    The trace is exact (Gram diagonal sum); λmax comes from a power
+    iteration on ``op.gram_mv`` on the operator's device — the stored
+    sparse Gram shards when present, rmatvec∘matvec otherwise. Padded rows
+    have zero diagonal and stay pinned at zero. The estimate is read back
+    once, after the last iteration.
+    """
+    diag = op.gram_diag().double().cpu().numpy()  # (J, p_pad)
+    J, p_pad = diag.shape
+    trace = diag.sum(axis=1)
+    live = diag > 0
+    rows = live.sum(axis=1).astype(np.float64)
+    v0 = live * _ramp(p_pad)
+    v0 /= np.maximum(np.linalg.norm(v0, axis=1, keepdims=True), 1e-300)
+    v = torch.from_numpy(v0[..., None]).to(device=op.device, dtype=op.fwd_data.dtype)
+    lam = np.zeros(J)
+    nrm = None
+    for _ in range(iters):
+        w = op.gram_mv(v)
+        nrm = torch.linalg.vector_norm(w.reshape(J, -1), dim=1)
+        v = w / torch.clamp(nrm, min=1e-30)[:, None, None]
+    if nrm is not None:
+        lam = nrm.double().cpu().numpy()
     return {
         "lam_max": lam,
         "trace": trace,

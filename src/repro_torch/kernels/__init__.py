@@ -4,10 +4,12 @@
   * the projection application in the consensus update (eqs. 4, 6)
     -- ``project/`` (fused ``x + gamma*(I - W^T W)(xbar - x)``, never
     materializing P)
+  * the matrix-free path's blocked-ELL products -- ``spmm/`` (the forward
+    SpMM, and the fused pass that also stages the transposed per-tile
+    contributions)
 
 Each kernel ships ``csrc/<name>.cu`` (CUDA C++ for sm_90a, built with nvcc
 at first use by ``_build.py``), ``ops.py`` (the checked wrapper with its
 launch counter) and ``ref.py`` (the plain PyTorch version the CPU path and
-the parity tests use). The blocked-ELL SpMM kernels of the matrix-free path
-are not ported yet (ROADMAP Queue 2, items 3-4).
+the parity tests use).
 """

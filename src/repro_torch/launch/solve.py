@@ -5,6 +5,7 @@ Usage:
       --blocks 8 --method dapc --epochs 100
   ... --rhs 32                  # a 32-RHS batch against one prepared factorization
   ... --kernels --implicit-p    # the hand-written CUDA kernels
+  ... --n 2327 --m 2327 --mode matfree --kernels   # the sparse operator path
   ... --device cpu              # the card is the default
 
 Prints the same JSON record as the reference package's command line.

@@ -7,6 +7,7 @@ from repro_torch.sparse.matrix import (
     make_row_mixer,
     matrix_stats,
 )
+from repro_torch.sparse.bsr import DEFAULT_BLOCK_SHAPE, BlockEll, PartitionedBSR
 from repro_torch.sparse.io import (
     generate_schenk_like,
     augment_system,
@@ -16,7 +17,10 @@ from repro_torch.sparse.io import (
 )
 
 __all__ = [
+    "BlockEll",
     "COOMatrix",
+    "DEFAULT_BLOCK_SHAPE",
+    "PartitionedBSR",
     "PlanMixer",
     "RowMixer",
     "block_rows",

@@ -4,7 +4,8 @@
 ``COOMatrix`` is the host-side ingest/generation/statistics format. The
 **dense** path densifies each row block before QR (``row_block``, mirroring
 the paper's own ``.toarray()`` in its Dask implementation). The
-matrix-free blocked-ELL path is not ported yet (ROADMAP Queue 1, item 4).
+matrix-free path converts it to blocked-ELL shards instead
+(``repro_torch.sparse.bsr``), never densifying.
 """
 from __future__ import annotations
 

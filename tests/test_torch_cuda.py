@@ -10,8 +10,12 @@ import torch
 
 from repro_torch.kernels.project import ops as project_ops
 from repro_torch.kernels.project.ref import consensus_update_ref, project_ref
+from repro_torch.kernels.spmm import ops as spmm_ops
+from repro_torch.kernels.spmm.ref import spmm_fused_plain, spmm_plain
 from repro_torch.kernels.trisolve import ops as trisolve_ops
 from repro_torch.kernels.trisolve.ref import trisolve_ref
+from repro_torch.sparse import PartitionedBSR, generate_schenk_like
+from repro_torch.sparse.bsr import _pad_cols
 
 pytestmark = pytest.mark.gpu
 
@@ -146,3 +150,98 @@ def test_slice_kernels_match_plain_on_card(cuda, num_blocks):
                        use_kernels=kernels, device=cuda)
         res[kernels] = prep.solve(B, num_epochs=30)
     np.testing.assert_allclose(res[True].x, res[False].x, atol=1e-4)
+
+
+# -- the blocked-ELL SpMM kernels ---------------------------------------------
+
+
+def _ell_operands(bshape, k, seed, dtype=torch.float32, n=200, J=3):
+    """Forward shards of a Schenk-like matrix, x as the (J, C, bn, k) tile
+    view and y (J, R, bp, k), on the CPU in ``dtype``."""
+    coo = generate_schenk_like(n, sparsity=0.95, seed=seed)
+    op = PartitionedBSR.from_coo(coo, J, bshape, dtype=np.dtype(str(dtype).split(".")[1]),
+                                 device="cpu")
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.standard_normal((J, n, k)), dtype=dtype)
+    xb = _pad_cols(x, n, bshape[1]).contiguous()
+    R = op.fwd_indices.shape[1]
+    y = torch.as_tensor(rng.standard_normal((J, R, bshape[0], k)), dtype=dtype)
+    return op.fwd_indices, op.fwd_data, xb, y
+
+
+def _spmm_close(got, want, rtol):
+    """atol rtol + rtol·max|want|, the reference's tolerance scaled to the
+    data (tests/test_kernel_spmm.py)."""
+    tol = rtol + rtol * float(want.abs().max())
+    torch.testing.assert_close(got, want, atol=tol, rtol=0)
+
+
+SPMM_TILES = [(8, 8), (4, 16), (8, 128), (16, 8), (128, 128), (3, 5)]
+
+
+@pytest.mark.parametrize("bshape", SPMM_TILES)
+@pytest.mark.parametrize("k", [1, 32, 37])
+def test_spmm_f32(cuda, bshape, k):
+    idx, data, xb, y = _ell_operands(bshape, k, seed=k + bshape[0])
+    dev = [t.to(cuda) for t in (idx, data, xb, y)]
+    _spmm_close(spmm_ops.spmm(*dev[:3]).cpu(), spmm_plain(idx, data, xb), 1e-4)
+    fwd, contrib = spmm_ops.spmm_fused(*dev)
+    want_fwd, want_contrib = spmm_fused_plain(idx, data, xb, y)
+    _spmm_close(fwd.cpu(), want_fwd, 1e-4)
+    _spmm_close(contrib.cpu(), want_contrib, 1e-4)
+
+
+@pytest.mark.parametrize("bshape", [(8, 8), (128, 128)])
+def test_spmm_f64(cuda, bshape):
+    idx, data, xb, y = _ell_operands(bshape, 5, seed=3, dtype=torch.float64)
+    dev = [t.to(cuda) for t in (idx, data, xb, y)]
+    out = spmm_ops.spmm(*dev[:3])
+    assert out.dtype == torch.float64
+    _spmm_close(out.cpu(), spmm_plain(idx, data, xb), 1e-12)
+    fwd, contrib = spmm_ops.spmm_fused(*dev)
+    want_fwd, want_contrib = spmm_fused_plain(idx, data, xb, y)
+    _spmm_close(fwd.cpu(), want_fwd, 1e-12)
+    _spmm_close(contrib.cpu(), want_contrib, 1e-12)
+
+
+def test_spmm_broadcast_x_and_checks(cuda):
+    idx, data, xb, y = (t.to(cuda) for t in _ell_operands((8, 8), 4, seed=1))
+    wide = xb[:1].expand_as(xb)  # one operand for every block, stride 0
+    torch.testing.assert_close(spmm_ops.spmm(idx, data, wide),
+                               spmm_ops.spmm(idx, data, wide.contiguous()), atol=0, rtol=0)
+    before = dict(spmm_ops.launches)
+    spmm_ops.spmm(idx, data, xb)
+    spmm_ops.spmm_fused(idx, data, xb, y)
+    assert spmm_ops.launches == {"spmm": before["spmm"] + 1, "spmm_fused": before["spmm_fused"] + 1}
+    spmm_ops.spmm(idx.cpu(), data.cpu(), xb.cpu())  # the CPU path launches nothing
+    assert spmm_ops.launches["spmm"] == before["spmm"] + 1
+    with pytest.raises(TypeError, match="int32"):
+        spmm_ops.spmm(idx.long(), data, xb)
+    with pytest.raises(TypeError):
+        spmm_ops.spmm(idx, data.half(), xb.half())
+    with pytest.raises(TypeError):
+        spmm_ops.spmm(idx, data, xb.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        spmm_ops.spmm(idx, data.transpose(-1, -2).contiguous().transpose(-1, -2), xb)
+    with pytest.raises(ValueError, match="expected"):
+        spmm_ops.spmm(idx, data, xb.cpu())
+
+
+@pytest.mark.parametrize("gram_solver", ["direct", "pcg"])
+def test_matfree_kernels_match_plain_on_card(cuda, gram_solver):
+    from repro_torch.core import prepare
+    from repro_torch.sparse import make_problem
+
+    prob = make_problem(n=256, m=256, sparsity=0.98, seed=2, dtype=np.float32)
+    B = prob.A @ np.random.default_rng(1).standard_normal((256, 6)).astype(np.float32)
+    res = {}
+    for kernels in (True, False):
+        before = dict(spmm_ops.launches)
+        prep = prepare(prob.coo, mode="matfree", num_blocks=8, gram_solver=gram_solver,
+                       use_kernels=kernels, gamma=2.0, eta=1.9, device=cuda)
+        res[kernels] = prep.solve(B, num_epochs=40)
+        launched = {key: spmm_ops.launches[key] - before[key] for key in before}
+        assert (launched["spmm"] > 0 and launched["spmm_fused"] == 40) == kernels, launched
+    scale = float(np.abs(res[False].x).max())
+    np.testing.assert_allclose(res[True].x, res[False].x, atol=2.5e-4 * scale)
+    np.testing.assert_array_equal(res[True].history["inner_iters"].shape, (40, 6))

@@ -176,10 +176,13 @@ def test_not_implemented_stubs():
 
     prob = tio.make_problem(n=16, m=64, seed=0, dtype=np.float32)
     big = tio.make_problem(n=256, m=256, seed=0, dtype=np.float32)
+    # the matrix-free path runs now (tests/test_torch_matfree.py); its
+    # sessions and its mesh placement belong to later slices
+    matfree = prepare(big.coo, num_blocks=4, matfree_threshold_bytes=1, device="cpu")
     cases = [
-        (lambda: prepare(prob.A, num_blocks=4, mode="matfree", device="cpu"), "matrix-free"),
-        # auto past the threshold resolves the matrix-free path
-        (lambda: prepare(big.coo, num_blocks=4, matfree_threshold_bytes=1, device="cpu"), "matrix-free"),
+        (lambda: matfree.open_session(), "item 6"),
+        (lambda: prepare(big.coo, num_blocks=4, mode="matfree", mesh=object(), device="cpu"),
+         "item 8"),
         (lambda: prepare(prob.A, num_blocks=4, mesh=object(), device="cpu"), "multi-device"),
         (lambda: prepare(prob.A, method="dgd", num_blocks=4, device="cpu"), "baselines"),
         (lambda: prepare(prob.A, method="cgnr", num_blocks=4, device="cpu"), "baselines"),
@@ -194,7 +197,7 @@ def test_not_implemented_stubs():
     with pytest.raises(NotImplementedError, match="guard"):
         res.assess_health()
     arrays, meta = prep.to_state()
-    with pytest.raises(NotImplementedError, match="matrix-free"):
+    with pytest.raises(ValueError, match="matrix-free"):
         type(prep).from_state(arrays, {**meta, "path": "matfree"}, device="cpu")
 
 
@@ -224,7 +227,8 @@ def test_port_never_imports_jax_or_repro():
 def test_importing_the_port_loads_no_jax():
     code = (
         "import sys, repro_torch.core, repro_torch.launch.solve, repro_torch.kernels.trisolve.ops, "
-        "repro_torch.kernels.project.ops\n"
+        "repro_torch.kernels.project.ops, repro_torch.kernels.spmm.ops, repro_torch.core.matfree, "
+        "repro_torch.sparse.bsr\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
     )
