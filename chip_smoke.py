@@ -26,12 +26,22 @@
    matrix-free path with the PCG Gram solver. Each is checked against the
    kernels-off solver restored from its own state on the card (within
    2.5e-4·max|x|), the n=2327 residual against the JAX package's CPU value;
-6. holds the two blocked-ELL SpMM kernels against their plain versions on
-   the operators those runs prepared (forward, transposed and Gram shards),
-   timed beside one ``torch.sparse.mm`` (cuSPARSE) of the same shards laid
-   out as a block-diagonal CSR matrix;
+6. holds the two SpMM kernels against their plain versions on the operators
+   those runs prepared (forward, transposed and Gram shards): the
+   packed-nonzero ``spmm_packed`` on each operator's packed form, and the
+   blocked-ELL ``spmm_fused``; each timed beside one ``torch.sparse.mm``
+   (cuSPARSE) of the same shards laid out as a block-diagonal CSR matrix.
+   ``bound_ms`` counts the bytes the product needs (each nonzero's value and
+   column, the row pointers, x and the output once), ``bound_ell_ms`` the
+   stored ELL arrays;
 7. prints the kernel table as one JSON line, the card line again, and the
    ``{"ok": true, "device": ...}`` line last.
+
+The trisolve and SpMM cases are timed twice: with CUDA events around
+back-to-back calls (``ms``, which includes the Python wrapper's host cost
+where a call is shorter than it) and as a CUDA-graph replay of the same
+calls, which the card runs without waiting for the host (``device_ms``;
+``library_device_ms`` for the library call).
 
 Any failed check raises, so the run exits non-zero and prints no last line.
 Without CUDA, or without the repository beside it, it exits non-zero too.
@@ -101,6 +111,30 @@ def cuda_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, iters: int) -> float:
+    """Mean device milliseconds per call without the host's cost of making
+    it: ``iters`` calls captured in one CUDA graph (after a warm-up call on
+    the capture stream), replayed once and timed with CUDA events. For calls
+    that do not wait on the host (kernels, library calls)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()  # warm
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def bound(nbytes: float, flops: float, dtype_name: str) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
@@ -144,6 +178,8 @@ def kernel_phase(torch, trisolve_ops, trisolve_ref, project_ops, project_ref, cu
         plain = cuda_ms(torch, lambda: trisolve_ref(r, y, lower=lower, transpose=transpose), iters)
         op_r = r.mT if transpose else r
         lib = cuda_ms(torch, lambda: torch.linalg.solve_triangular(op_r, y, upper=not lower), iters)
+        dev_ms = device_ms(torch, lambda: trisolve_ops.trisolve(r, y, lower=lower, transpose=transpose), iters)
+        lib_dev = device_ms(torch, lambda: torch.linalg.solve_triangular(op_r, y, upper=not lower), iters)
         s = r.element_size()
         nbytes = J * n * (n + 1) / 2 * s + 2 * J * n * k * s
         flops = J * k * float(n) * n
@@ -153,9 +189,11 @@ def kernel_phase(torch, trisolve_ops, trisolve_ref, project_ops, project_ref, cu
                      f" {'lower' if lower else 'upper'}{' on R^T' if transpose else ''}",
             "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+            "device_ms": dev_ms, "library_device_ms": lib_dev,
         }
-        print(f"  {name:26s} err {err:.3e} (tol {tol:.1e})  kernel {ms:.4f} ms  "
-              f"plain {plain:.4f} ms  library {lib:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+        print(f"  {name:26s} err {err:.3e} (tol {tol:.1e})  kernel {ms:.4f} ms (device "
+              f"{dev_ms:.4f})  plain {plain:.4f} ms  library {lib:.4f} ms (device {lib_dev:.4f})"
+              f"  bound {b_ms:.4f} ms ({b_by})")
         check(err <= tol, f"{name}: max error {err} above {tol}")
 
     def proj_case(name, w, k, x_dtype, with_x):
@@ -333,6 +371,10 @@ def matfree_run(torch, launch_solve, ops, n, mode, epochs):
           f"{tuple(prep.op.fwd_data.shape)}, {100 * fill:.2f}% of their entries nonzero; "
           f"inner depth per epoch mean {inner.mean():.3f} "
           f"max {inner.max()}; host syncs in the solve {syncs}")
+    packs = {name: getattr(prep.op, f"{name}_packed") for name in ("fwd", "tra", "gram")}
+    check(all(p is not None for p in packs.values()), f"n={n}: the operator was not packed")
+    print("    packed forms on the card: " + ", ".join(
+        f"{name} {p.nnz} nonzeros {p.nbytes / 1e6:.3f} MB" for name, p in packs.items()))
     check(record["path"] == "matfree", f"n={n}: path {record['path']}, expected matfree")
     check(launches["spmm"] >= 1 and launches["spmm_fused"] >= 1,
           f"n={n}: a kernel of the matrix-free path was not launched: {launches}")
@@ -370,9 +412,11 @@ def block_diag_csr(torch, indices, data, num_col_blocks):
     return coo.coalesce().to_sparse_csr()
 
 
-def spmm_phase(torch, spmm_ops, spmm_plain, spmm_fused_plain, op_small, op_big):
+def spmm_phase(torch, spmm_ops, spmm_plain, spmm_packed_plain, spmm_fused_plain, op_small,
+               op_big):
     """The SpMM kernels against their plain versions on the card, on the
-    operators the matrix-free runs prepared, at k = 32."""
+    operators the matrix-free runs prepared (their packed forms included), at
+    k = 32."""
     from repro_torch.sparse import PartitionedBSR, generate_schenk_like
     from repro_torch.sparse.bsr import _pad_cols
 
@@ -380,7 +424,7 @@ def spmm_phase(torch, spmm_ops, spmm_plain, spmm_fused_plain, op_small, op_big):
     gen = torch.Generator(device=dev).manual_seed(1)
     results = {}
 
-    def case(name, what, indices, data, xb, y=None, iters=20):
+    def case(name, what, indices, data, packed, xb, y=None, iters=20):
         fused = y is not None
         if fused:
             def run():
@@ -390,19 +434,22 @@ def spmm_phase(torch, spmm_ops, spmm_plain, spmm_fused_plain, op_small, op_big):
                 return spmm_fused_plain(indices, data, xb, y)
         else:
             def run():
-                return (spmm_ops.spmm(indices, data, xb),)
+                return (spmm_ops.spmm_packed(packed, xb),)
 
-            def plain():
-                return (spmm_plain(indices, data, xb),)
+            def plain():  # the packed kernel's plain version: a segment sum
+                return (spmm_packed_plain(packed, xb),)
         got, want = run(), plain()
         torch.cuda.synchronize()
         err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        if not fused:  # and the function itself, on the ELL arrays
+            err = max(err, float((got[0] - spmm_plain(indices, data, xb)).abs().max()))
         # the reference's own tolerance (tests/test_kernel_spmm.py): atol
         # 1e-4 plus rtol 1e-4 of the largest entry
         tol = min(1e-4 + 1e-4 * float(w.abs().max()) for w in want)
         ms = cuda_ms(torch, run, iters)
         plain_ms = cuda_ms(torch, plain, max(iters // 4, 3))
-        lib = lib_err = None
+        dev_ms = device_ms(torch, run, iters)
+        lib = lib_dev = lib_err = None
         if not fused:
             C = xb.shape[1]
             csr = block_diag_csr(torch, indices, data, C)
@@ -410,25 +457,36 @@ def spmm_phase(torch, spmm_ops, spmm_plain, spmm_fused_plain, op_small, op_big):
             lib_out = torch.sparse.mm(csr, xs)
             lib_err = float((lib_out.reshape(want[0].shape) - want[0]).abs().max())
             lib = cuda_ms(torch, lambda: torch.sparse.mm(csr, xs), iters)
+            lib_dev = device_ms(torch, lambda: torch.sparse.mm(csr, xs), iters)
         J, R, S, bp, bn = data.shape
         k = xb.shape[-1]
         s = data.element_size()
+        nnz = int(torch.count_nonzero(data))
         x_bytes = xb[0].numel() * s * (1 if xb.stride(0) == 0 else J)
-        nbytes = (indices.numel() * 4 + data.numel() * s + x_bytes
-                  + sum(t.numel() for t in got) * s + (y.numel() * s if fused else 0))
-        flops = 2.0 * int(torch.count_nonzero(data)) * k * (2 if fused else 1)
-        b_ms, b_by = bound(nbytes, flops, str(data.dtype).split(".")[1])
+        io_bytes = x_bytes + sum(t.numel() for t in got) * s + (y.numel() * s if fused else 0)
+        # what the product needs: each nonzero's value and column (int32) and
+        # the int32 row pointers of the J*R*bp rows; the ELL figure streams
+        # every stored tile and tile id
+        need = nnz * (s + 4) + (J * R * bp + 1) * 4 + io_bytes
+        ell = indices.numel() * 4 + data.numel() * s + io_bytes
+        flops = 2.0 * nnz * k * (2 if fused else 1)
+        dt = str(data.dtype).split(".")[1]
+        b_ms, b_by = bound(need, flops, dt)
+        ell_ms, _ = bound(ell, flops, dt)
         results[name] = {
-            "shape": f"{what}: indices {tuple(indices.shape)}, tiles {(bp, bn)}, k {k}"
+            "shape": f"{what}: indices {tuple(indices.shape)}, tiles {(bp, bn)}, k {k}, "
+                     f"{nnz} nonzeros"
                      + (", x broadcast over J" if xb.stride(0) == 0 else "")
                      + (", staged contrib" if fused else ""),
             "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+            "bound_ms": b_ms, "bound_by": b_by, "bound_ell_ms": ell_ms, "library_ms": lib,
+            "device_ms": dev_ms, "library_device_ms": lib_dev,
         }
-        lib_txt = "—" if lib is None else f"{lib:.4f} ms (err {lib_err:.1e})"
-        print(f"  {name:24s} err {err:.3e} (tol {tol:.1e})  kernel {ms:.4f} ms  plain "
-              f"{plain_ms:.4f} ms  library {lib_txt}  bound {b_ms:.4f} ms ({b_by}, "
-              f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
+        lib_txt = "—" if lib is None else f"{lib:.4f} ms (device {lib_dev:.4f}, err {lib_err:.1e})"
+        print(f"  {name:24s} err {err:.3e} (tol {tol:.1e})  kernel {ms:.4f} ms (device "
+              f"{dev_ms:.4f})  plain {plain_ms:.4f} ms  library "
+              f"{lib_txt}  bound {b_ms:.4f} ms ({b_by}, {need / 1e6:.2f} MB, "
+              f"{flops / 1e9:.3f} GFLOP)  ELL bound {ell_ms:.4f} ms ({ell / 1e6:.1f} MB)")
         check(err <= tol, f"{name}: max error {err} above {tol}")
 
     def col_tiles(op, k):  # the main path's broadcast operand: padded once
@@ -444,21 +502,22 @@ def spmm_phase(torch, spmm_ops, spmm_plain, spmm_fused_plain, op_small, op_big):
     for label, op in (("n2327", op_small), ("n16384", op_big)):
         iters = 20 if label == "n2327" else 10
         case(f"spmm.fwd.{label}", "forward shards", op.fwd_indices, op.fwd_data,
-             col_tiles(op, 32), iters=iters)
+             op.fwd_packed, col_tiles(op, 32), iters=iters)
         case(f"spmm_fused.{label}", "forward shards, fused", op.fwd_indices, op.fwd_data,
-             col_tiles(op, 32), row_tiles(op, 32), iters=iters)
+             None, col_tiles(op, 32), row_tiles(op, 32), iters=iters)
     case("spmm.fwd.n2327.k1", "forward shards, one RHS", op_small.fwd_indices,
-         op_small.fwd_data, col_tiles(op_small, 1))
+         op_small.fwd_data, op_small.fwd_packed, col_tiles(op_small, 1))
     bp = op_big.block_shape[0]
     case("spmm.tra.n16384", "transposed shards", op_big.tra_indices, op_big.tra_data,
-         _pad_cols(rows(op_big, 32), op_big.p_pad, bp), iters=10)
+         op_big.tra_packed, _pad_cols(rows(op_big, 32), op_big.p_pad, bp), iters=10)
     case("spmm.gram.n16384", "Gram shards", op_big.gram_indices, op_big.gram_data,
-         _pad_cols(rows(op_big, 32), op_big.p_pad, bp), iters=10)
-    tall = PartitionedBSR.from_coo(generate_schenk_like(2048, seed=5), 8, (16, 8), device=dev)
+         op_big.gram_packed, _pad_cols(rows(op_big, 32), op_big.p_pad, bp), iters=10)
+    tall = PartitionedBSR.from_coo(generate_schenk_like(2048, seed=5), 8, (16, 8),
+                                   device=dev).with_packed()
     case("spmm.tile16x8", "forward shards, (16, 8) tiles", tall.fwd_indices, tall.fwd_data,
-         col_tiles(tall, 32))
+         tall.fwd_packed, col_tiles(tall, 32))
     case("spmm_fused.tile16x8", "forward shards, (16, 8) tiles, fused", tall.fwd_indices,
-         tall.fwd_data, col_tiles(tall, 32), row_tiles(tall, 32))
+         tall.fwd_data, None, col_tiles(tall, 32), row_tiles(tall, 32))
     return results
 
 
@@ -476,7 +535,7 @@ def main() -> int:
     from repro_torch.kernels.project import ops as project_ops
     from repro_torch.kernels.project.ref import consensus_update_ref, project_ref
     from repro_torch.kernels.spmm import ops as spmm_ops
-    from repro_torch.kernels.spmm.ref import spmm_fused_plain, spmm_plain
+    from repro_torch.kernels.spmm.ref import spmm_fused_plain, spmm_packed_plain, spmm_plain
     from repro_torch.kernels.trisolve import ops as trisolve_ops
     from repro_torch.kernels.trisolve.ref import trisolve_ref
     from repro_torch.launch import solve as launch_solve
@@ -519,9 +578,12 @@ def main() -> int:
     print("matrix-free path at n=16384 (--mode auto must resolve matfree with PCG):")
     mf_big = matfree_run(torch, launch_solve, ops, 16384, "auto", 100)
     check(mf_big["prep"].gram_solver == "pcg", "matfree n=16384: expected the PCG Gram solver")
+    # 15 Gram products per epoch (the PCG depth) over 100 epochs, all packed
+    check(mf_big["launches"]["spmm"] >= 1500,
+          f"matfree n=16384: {mf_big['launches']['spmm']} packed SpMM launches, expected >= 1500")
 
     print("SpMM kernel phase (kernel vs plain version on the card, operators of the runs above):")
-    cases.update(spmm_phase(torch, spmm_ops, spmm_plain, spmm_fused_plain,
+    cases.update(spmm_phase(torch, spmm_ops, spmm_plain, spmm_packed_plain, spmm_fused_plain,
                             mf_small["prep"].op, mf_big["prep"].op))
 
     def entry(name, source, replaces, launches, case, extra=()):

@@ -584,7 +584,8 @@ class MatrixFreePreparedSolver:
             return _tensor(np.asarray(arrays[key]), dev)
 
         return cls(
-            op=PartitionedBSR.from_arrays(arrays, meta["op"], device=dev),
+            op=PartitionedBSR.from_arrays(arrays, meta["op"], device=dev,
+                                          packed=_packs(meta["use_kernels"], dev)),
             method=meta["method"],
             gamma=meta["gamma"],
             eta=meta["eta"],
@@ -598,6 +599,12 @@ class MatrixFreePreparedSolver:
             warm_start=meta["warm_start"],
             **spectra_mod.dynamics_state(arrays, meta),
         )
+
+
+def _packs(use_kernels: bool, dev: torch.device) -> bool:
+    """Whether the operator carries the packed forms: on the card, with the
+    kernels (on the CPU the wrappers take the ELL plain versions)."""
+    return bool(use_kernels) and dev.type == "cuda"
 
 
 def _collapse_k(tree):
@@ -640,7 +647,8 @@ def prepare_matfree(
     ``warm_start`` seeds each epoch's inner CG with the previous epoch's
     Gram solution (PCG only). ``use_kernels`` routes every tile product
     through the hand-written SpMM kernels and stores the A_jᵀ shards they
-    stream.
+    stream; on the card it also packs every shard stack's nonzeros once
+    (``PartitionedBSR.with_packed``) for the forward products.
 
     ``partition="cost_aware"`` assigns rows to blocks with
     ``PartitionPlan.cost_aware``; ``dynamics="per_block"`` estimates
@@ -685,6 +693,8 @@ def prepare_matfree(
         plan=plan,
         device=dev,
     )
+    if _packs(use_kernels, dev):
+        op = op.with_packed()
     # relative-epsilon Jacobi clamp: padded rows stay 0, near-zero Gram
     # diagonals are bounded instead of exploding (see jacobi_weights)
     diag_inv = op.jacobi_weights()

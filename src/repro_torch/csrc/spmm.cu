@@ -1,14 +1,9 @@
-// Blocked-ELL SpMM for the matrix-free path, forward and fused.
+// SpMM for the matrix-free path: the packed-nonzero forward product and the
+// blocked-ELL fused pass.
 //
-//   spmm:       out[j, r] = sum_s data[j, r, s] @ x[j, idx[j, r, s]]
-//   spmm_fused: the same out, plus contrib[j, r, s] = data[j, r, s]^T @ y[j, r]
-//
-// idx (J, R, S) int32 column-block ids; data (J, R, S, bp, bn) tiles; x the
-// (J, C, bn, k) tile view of the column space (its j-stride may be 0: one
-// operand broadcast to every block); y (J, R, bp, k). out (J, R, bp, k) and
-// contrib (J, R, S, bn, k) are written in the data type. Padding slots hold
-// index 0 and zero data: they add exactly 0, and index 0 is never skipped
-// (real tiles live there too).
+//   spmm_packed: out[row] = sum_{e in row} val[e] * x[j(row)][col[e]]
+//   spmm_fused:  out[j, r] = sum_s data[j, r, s] @ x[j, idx[j, r, s]], plus
+//                contrib[j, r, s] = data[j, r, s]^T @ y[j, r]
 //
 // Replaces: the Pallas TPU kernels of src/repro/kernels/spmm/spmm.py,
 // `spmm_padded` (body `_spmm_kernel`) and `spmm_fused_padded` (body
@@ -16,12 +11,54 @@
 // on one core, revisiting the output stripe in VMEM, with the tile ids as a
 // scalar-prefetch operand.
 //
+// x is the (J, C, bn, k) tile view of the column space, read as (J, C*bn, k)
+// rows of k contiguous values; its j-stride may be 0 (one operand broadcast to
+// every block). Outputs are written in the data type; float32 and float64 each
+// accumulate in their own type (float64 is therefore more exact than the
+// reference, which casts tiles to float32 inside its kernel).
+//
+// ---- spmm_packed -----------------------------------------------------------
+// The forward product over a CSR of the same nonzeros (kernels/spmm/pack.py):
+// row_ptr (rows + 1), col (nnz) = the x row idx * bn + b of each nonzero, val
+// (nnz), rows ordered (j, r, p) and each row's entries in (slot, tile column)
+// order. The (8, 8) tiles of the Schenk-like shards hold one to three
+// nonzeros each (1.7% fill at n = 16384), so the ELL tiles carry 25-57x the
+// bytes the product needs; the packed form carries 8 B per nonzero.
+//
+// What bounds it on an H100: the gathers. Each nonzero costs one read of an
+// x row (k values, 128 B at k = 32 in float32), from L2: x (2.1 MB at
+// n = 16384, k = 32) and the packed arrays fit the 50 MB L2 together. Device
+// memory sees the packed arrays, x and the output once. Tensor cores do not
+// fit: one to three nonzeros per 8x8 tile leave no dense sub-block for
+// wgmma or mma.sync, so the FMAs run on CUDA cores.
+//
+// Design:
+//   * a group of L lanes owns one output row, 32 / L rows per warp; each lane
+//     covers V consecutive columns with one 16-byte (or 8-, 4-byte) vector
+//     load per gathered row, so a group reads L * V columns of an x row in
+//     one coalesced access; wider k takes more column tiles (grid.y). L is
+//     the smallest power of two covering k / V: at k = 32 in float32 eight
+//     lanes of float4 take a row and a warp takes four rows; at k = 1 every
+//     lane owns a row of its own, so no lane idles on short k;
+//   * the group reads its row's (col, val) pairs P at a time with coalesced
+//     loads (P = max(L, 8)), the next batch loaded before this one is used,
+//     and broadcasts each pair with __shfl_sync inside the group;
+//   * the gathers run eight at a time: eight x rows are loaded before their
+//     FMAs, so eight L2 reads are in flight per lane instead of one;
+//   * one writer per output row, fixed order, no atomics: every output is
+//     summed over its row's entries in packed order. For finite inputs this
+//     gives exactly the bits of the ELL kernel below, which adds the same
+//     products in the same order plus exact zeros (0 * x added to a sum
+//     changes nothing). A NaN or Inf in x that only a zero coefficient
+//     touches no longer propagates (the ELL sum forms 0 * Inf).
+//
+// ---- spmm_fused ------------------------------------------------------------
 // What bounds it on an H100: bytes. A tile of (8, 8) float32 is 256 B and
 // feeds 2 * 8 * 8 * k FLOPs per product, so at k = 32 the tiles alone need
 // 16 FLOP/B against the card's 20 FLOP/B f32 balance point (67 TFLOP/s over
 // 3.35 TB/s), and the gathered x rows (bn * k values per slot, read through
-// L2) and, for the fused kernel, the staged contrib (as large as the gathered
-// x) push it further to the memory side.
+// L2) and the staged contrib (as large as the gathered x) push it further to
+// the memory side.
 //
 // Design:
 //   * one thread block per (j, r, 32-column k-tile): the slot loop runs inside
@@ -35,16 +72,173 @@
 //     accumulates its (<= 16 rows, 1 column) stripe in registers and writes
 //     it once, so every output has one writer and a fixed order of sums
 //     (no atomics);
-//   * the fused kernel loads y[j, r] once before the slot loop and, from the
-//     data chunk already in shared memory, writes each slot's contribution
-//     once to its own staging slot (no atomics; the caller scatter-adds);
-//   * tiles take any (bp, bn) with each side at most 128; float32 and float64,
-//     each accumulated in its own type (float64 is therefore more exact than
-//     the reference, which casts tiles to float32 inside its kernel).
+//   * y[j, r] is loaded once before the slot loop and, from the data chunk
+//     already in shared memory, each slot's contribution is written once to
+//     its own staging slot (no atomics; the caller scatter-adds);
+//   * tiles take any (bp, bn) with each side at most 128.
 // No library call computes any product here (no cuBLAS, no cuSPARSE).
+#include <cstdint>
+
 #include "common.cuh"
 
 namespace {
+
+// ---- spmm_packed -----------------------------------------------------------
+
+constexpr int PK_THREADS = 256;  // 8 warps
+constexpr int UNR = 8;           // gathers in flight per lane
+
+template <typename T, int V> struct VecOf;
+template <> struct VecOf<float, 1> { using type = float; };
+template <> struct VecOf<float, 2> { using type = float2; };
+template <> struct VecOf<float, 4> { using type = float4; };
+template <> struct VecOf<double, 1> { using type = double; };
+template <> struct VecOf<double, 2> { using type = double2; };
+
+template <typename T, int V>
+__device__ __forceinline__ void load_vec(const T* p, T (&v)[V]) {
+  const typename VecOf<T, V>::type q = __ldg(reinterpret_cast<const typename VecOf<T, V>::type*>(p));
+  if constexpr (V == 1) {
+    v[0] = q;
+  } else if constexpr (V == 2) {
+    v[0] = q.x; v[1] = q.y;
+  } else {
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  }
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void store_vec(T* p, const T (&v)[V]) {
+  typename VecOf<T, V>::type q;
+  if constexpr (V == 1) {
+    q = v[0];
+  } else if constexpr (V == 2) {
+    q.x = v[0]; q.y = v[1];
+  } else {
+    q.x = v[0]; q.y = v[1]; q.z = v[2]; q.w = v[3];
+  }
+  *reinterpret_cast<typename VecOf<T, V>::type*>(p) = q;
+}
+
+template <typename T, int V, int L>
+__global__ void __launch_bounds__(PK_THREADS) spmm_packed_kernel(
+    const int* __restrict__ row_ptr, const int* __restrict__ col, const T* __restrict__ val,
+    const T* __restrict__ x, long long x_jstride, T* __restrict__ out, int rows,
+    int block_rows, int k) {
+  constexpr int G = 32 / L;              // rows per warp
+  constexpr int P = L < UNR ? UNR : L;   // (col, val) pairs per batch
+  constexpr int Q = P / L;               // pairs each lane holds
+  const int lane = threadIdx.x & 31;
+  const int g = lane / L, gl = lane % L;
+  const int row = (blockIdx.x * (PK_THREADS / 32) + threadIdx.x / 32) * G + g;
+  if (row >= rows) return;  // a whole group leaves: shuffles below stay in-group
+  const unsigned mask = L == 32 ? 0xffffffffu : ((1u << L) - 1u) << (g * L);
+  const int c0 = blockIdx.y * (L * V) + gl * V;  // this lane's first column
+  const bool col_ok = c0 < k;                    // k % V == 0: all V columns live
+  const T* xj = x + (long long)(row / block_rows) * x_jstride + c0;
+  const int beg = row_ptr[row], end = row_ptr[row + 1];
+
+  int ci[Q];
+  T vi[Q];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const int e = beg + q * L + gl;
+    ci[q] = e < end ? __ldg(col + e) : 0;
+    vi[q] = e < end ? __ldg(val + e) : T(0);
+  }
+
+  T acc[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) acc[v] = T(0);
+
+  for (int e0 = beg; e0 < end; e0 += P) {
+    int cn[Q];  // the next batch, in flight while this one is used
+    T vn[Q];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int e = e0 + P + q * L + gl;
+      cn[q] = e < end ? __ldg(col + e) : 0;
+      vn[q] = e < end ? __ldg(val + e) : T(0);
+    }
+    const int n_e = min(P, end - e0);
+#pragma unroll
+    for (int t0 = 0; t0 < P; t0 += UNR) {
+      if (t0 >= n_e) break;  // uniform within the group
+      T xv[UNR][V];
+      T wv[UNR];
+#pragma unroll
+      for (int u = 0; u < UNR; ++u) {
+        const int t = t0 + u;  // pair t sits in lane t % L, slot t / L
+        const int cc = __shfl_sync(mask, ci[t / L], t % L, L);
+        wv[u] = __shfl_sync(mask, vi[t / L], t % L, L);
+        if (col_ok && t < n_e) {
+          load_vec<T, V>(xj + (size_t)cc * k, xv[u]);
+        } else {
+#pragma unroll
+          for (int v = 0; v < V; ++v) xv[u][v] = T(0);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < UNR; ++u) {
+        if (t0 + u < n_e) {
+#pragma unroll
+          for (int v = 0; v < V; ++v) acc[v] = fma(wv[u], xv[u][v], acc[v]);
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      ci[q] = cn[q];
+      vi[q] = vn[q];
+    }
+  }
+  if (col_ok) store_vec<T, V>(out + (size_t)row * k + c0, acc);
+}
+
+template <typename T, int V, int L>
+int launch_packed_l(const int* row_ptr, const int* col, const void* val, const void* x,
+                    long long x_jstride, void* out, int rows, int block_rows, int k,
+                    cudaStream_t stream) {
+  constexpr int ROWS_PER_BLOCK = (PK_THREADS / 32) * (32 / L);
+  const dim3 grid((rows + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK, (k + L * V - 1) / (L * V));
+  spmm_packed_kernel<T, V, L><<<grid, PK_THREADS, 0, stream>>>(
+      row_ptr, col, static_cast<const T*>(val), static_cast<const T*>(x), x_jstride,
+      static_cast<T*>(out), rows, block_rows, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int V>
+int launch_packed_v(const int* row_ptr, const int* col, const void* val, const void* x,
+                    long long x_jstride, void* out, int rows, int block_rows, int k,
+                    cudaStream_t s) {
+  const int lanes = (k + V - 1) / V;  // lanes one row would need
+  if (lanes <= 1) return launch_packed_l<T, V, 1>(row_ptr, col, val, x, x_jstride, out, rows, block_rows, k, s);
+  if (lanes <= 2) return launch_packed_l<T, V, 2>(row_ptr, col, val, x, x_jstride, out, rows, block_rows, k, s);
+  if (lanes <= 4) return launch_packed_l<T, V, 4>(row_ptr, col, val, x, x_jstride, out, rows, block_rows, k, s);
+  if (lanes <= 8) return launch_packed_l<T, V, 8>(row_ptr, col, val, x, x_jstride, out, rows, block_rows, k, s);
+  if (lanes <= 16) return launch_packed_l<T, V, 16>(row_ptr, col, val, x, x_jstride, out, rows, block_rows, k, s);
+  return launch_packed_l<T, V, 32>(row_ptr, col, val, x, x_jstride, out, rows, block_rows, k, s);
+}
+
+// The widest vector (at most 16 bytes) that divides k and keeps every
+// gathered row and output row aligned.
+template <typename T>
+int launch_packed(const int* row_ptr, const int* col, const void* val, const void* x,
+                  long long x_jstride, void* out, int rows, int block_rows, int k,
+                  cudaStream_t s) {
+  const auto aligned = [&](int v) {
+    const uintptr_t bytes = sizeof(T) * v;
+    return k % v == 0 && x_jstride % v == 0 && reinterpret_cast<uintptr_t>(x) % bytes == 0 &&
+           reinterpret_cast<uintptr_t>(out) % bytes == 0;
+  };
+  if constexpr (sizeof(T) == 4) {
+    if (aligned(4)) return launch_packed_v<T, 4>(row_ptr, col, val, x, x_jstride, out, rows, block_rows, k, s);
+  }
+  if (aligned(2)) return launch_packed_v<T, 2>(row_ptr, col, val, x, x_jstride, out, rows, block_rows, k, s);
+  return launch_packed_v<T, 1>(row_ptr, col, val, x, x_jstride, out, rows, block_rows, k, s);
+}
+
+// ---- spmm_fused (blocked ELL) ------------------------------------------------
 
 constexpr int KT = 32;             // k-tile: one column per lane
 constexpr int NY = 8;              // warps per block, splitting the bp rows
@@ -55,9 +249,9 @@ constexpr int MAX_TILE = 128;      // largest bp or bn taken
 // Dynamic shared memory, in units of T:
 //   ws[CH][bp + 1]  data chunk, transposed: ws[e][p] = data[s(e)][p][b(e)]
 //   xs[CH][KT]      gathered x rows:       xs[e][c] = x[idx[s(e)]][b(e)][c]
-//   ys[bp][KT]      fused only: the y[j, r] stripe
-template <typename T, int RPT, bool FUSED>
-__global__ void __launch_bounds__(THREADS) spmm_kernel(
+//   ys[bp][KT]      the y[j, r] stripe
+template <typename T, int RPT>
+__global__ void __launch_bounds__(THREADS) spmm_fused_kernel(
     const int* __restrict__ idx, const T* __restrict__ data, const T* __restrict__ x,
     long long x_jstride, const T* __restrict__ y, T* __restrict__ out,
     T* __restrict__ contrib, int R, int S, int bp, int bn, int k) {
@@ -75,12 +269,10 @@ __global__ void __launch_bounds__(THREADS) spmm_kernel(
   const T* data_jr = data + jr * S * bp * bn;
   const T* xj = x + (long long)j * x_jstride;
 
-  if (FUSED) {
-    const T* y_jr = y + jr * bp * k;
-    for (int t = tid; t < bp * KT; t += THREADS) {
-      const int p = t / KT, cc = t % KT;
-      ys[t] = cc < kw ? y_jr[(size_t)p * k + kt0 + cc] : T(0);
-    }
+  const T* y_jr = y + jr * bp * k;
+  for (int t = tid; t < bp * KT; t += THREADS) {
+    const int p = t / KT, cc = t % KT;
+    ys[t] = cc < kw ? y_jr[(size_t)p * k + kt0 + cc] : T(0);
   }
 
   T acc[RPT];
@@ -121,14 +313,12 @@ __global__ void __launch_bounds__(THREADS) spmm_kernel(
       }
     }
 
-    if (FUSED) {
-      // contrib[s][b][c] = sum_p data[s][p][b] * y[p][c]: chunk element e is
-      // (s, b), and its contribution row starts at (jr * S * bn + e0 + e) * k
-      for (int e = ty; e < n_e; e += NY) {
-        T sum = T(0);
-        for (int p = 0; p < bp; ++p) sum += ws[e * wstride + p] * ys[p * KT + tx];
-        if (tx < kw) contrib[(jr * S * bn + e0 + e) * k + kt0 + tx] = sum;
-      }
+    // contrib[s][b][c] = sum_p data[s][p][b] * y[p][c]: chunk element e is
+    // (s, b), and its contribution row starts at (jr * S * bn + e0 + e) * k
+    for (int e = ty; e < n_e; e += NY) {
+      T sum = T(0);
+      for (int p = 0; p < bp; ++p) sum += ws[e * wstride + p] * ys[p * KT + tx];
+      if (tx < kw) contrib[(jr * S * bn + e0 + e) * k + kt0 + tx] = sum;
     }
   }
 
@@ -142,16 +332,16 @@ __global__ void __launch_bounds__(THREADS) spmm_kernel(
   }
 }
 
-template <typename T, int RPT, bool FUSED>
-int launch_rpt(const int* idx, const void* data, const void* x, long long x_jstride,
-               const void* y, void* out, void* contrib, int J, int R, int S, int bp, int bn,
-               int k, cudaStream_t stream) {
-  const size_t smem =
-      (size_t)(CH * (bp + 1) + CH * KT + (FUSED ? bp * KT : 0)) * sizeof(T);
-  auto kernel = spmm_kernel<T, RPT, FUSED>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <typename T, int RPT>
+int launch_fused_rpt(const int* idx, const void* data, const void* x, long long x_jstride,
+                     const void* y, void* out, void* contrib, int J, int R, int S, int bp,
+                     int bn, int k, cudaStream_t stream) {
+  const size_t smem = (size_t)(CH * (bp + 1) + CH * KT + bp * KT) * sizeof(T);
+  auto kernel = spmm_fused_kernel<T, RPT>;
+  if (smem > 48 * 1024) {  // once, to the most any tile up to MAX_TILE needs
+    static unsigned devices_done = 0;
+    const size_t most = (size_t)(CH * (MAX_TILE + 1) + CH * KT + MAX_TILE * KT) * sizeof(T);
+    const cudaError_t e = smem_limit_once(kernel, (int)most, devices_done);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const dim3 grid(R, (k + KT - 1) / KT, J), block(KT, NY);
@@ -161,51 +351,52 @@ int launch_rpt(const int* idx, const void* data, const void* x, long long x_jstr
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool FUSED>
-int launch(const int* idx, const void* data, const void* x, long long x_jstride, const void* y,
-           void* out, void* contrib, int J, int R, int S, int bp, int bn, int k,
-           cudaStream_t s) {
+template <typename T>
+int launch_fused(const int* idx, const void* data, const void* x, long long x_jstride,
+                 const void* y, void* out, void* contrib, int J, int R, int S, int bp, int bn,
+                 int k, cudaStream_t s) {
   if (bp < 1 || bn < 1 || bp > MAX_TILE || bn > MAX_TILE || S < 1 || k < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int rows = (bp + NY - 1) / NY;  // rows per thread, rounded up to 2^i
-  if (rows <= 1) return launch_rpt<T, 1, FUSED>(idx, data, x, x_jstride, y, out, contrib, J, R, S, bp, bn, k, s);
-  if (rows <= 2) return launch_rpt<T, 2, FUSED>(idx, data, x, x_jstride, y, out, contrib, J, R, S, bp, bn, k, s);
-  if (rows <= 4) return launch_rpt<T, 4, FUSED>(idx, data, x, x_jstride, y, out, contrib, J, R, S, bp, bn, k, s);
-  if (rows <= 8) return launch_rpt<T, 8, FUSED>(idx, data, x, x_jstride, y, out, contrib, J, R, S, bp, bn, k, s);
-  return launch_rpt<T, 16, FUSED>(idx, data, x, x_jstride, y, out, contrib, J, R, S, bp, bn, k, s);
-}
-
-template <bool FUSED>
-int dispatch(int dtype, const void* idx, const void* data, const void* x, long long x_jstride,
-             const void* y, void* out, void* contrib, int J, int R, int S, int bp, int bn, int k,
-             void* stream) {
-  const int* ip = static_cast<const int*>(idx);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case DT_F32:
-      return launch<float, FUSED>(ip, data, x, x_jstride, y, out, contrib, J, R, S, bp, bn, k, s);
-    case DT_F64:
-      return launch<double, FUSED>(ip, data, x, x_jstride, y, out, contrib, J, R, S, bp, bn, k, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (rows <= 1) return launch_fused_rpt<T, 1>(idx, data, x, x_jstride, y, out, contrib, J, R, S, bp, bn, k, s);
+  if (rows <= 2) return launch_fused_rpt<T, 2>(idx, data, x, x_jstride, y, out, contrib, J, R, S, bp, bn, k, s);
+  if (rows <= 4) return launch_fused_rpt<T, 4>(idx, data, x, x_jstride, y, out, contrib, J, R, S, bp, bn, k, s);
+  if (rows <= 8) return launch_fused_rpt<T, 8>(idx, data, x, x_jstride, y, out, contrib, J, R, S, bp, bn, k, s);
+  return launch_fused_rpt<T, 16>(idx, data, x, x_jstride, y, out, contrib, J, R, S, bp, bn, k, s);
 }
 
 }  // namespace
 
 // Both launch on `stream` and return cudaGetLastError() (0 = launched).
 // `x_jstride` is x's stride between blocks j, in elements (0 = broadcast).
-extern "C" int spmm_launch(const void* idx, const void* data, const void* x, long long x_jstride,
-                           void* out, int J, int R, int S, int bp, int bn, int k, int dtype,
-                           void* stream) {
-  return dispatch<false>(dtype, idx, data, x, x_jstride, nullptr, out, nullptr, J, R, S, bp, bn,
-                         k, stream);
+
+// `rows` output rows of k values; row i belongs to block i / block_rows.
+extern "C" int spmm_packed_launch(const void* row_ptr, const void* col, const void* val,
+                                  const void* x, long long x_jstride, void* out, int rows,
+                                  int block_rows, int k, int dtype, void* stream) {
+  if (rows < 0 || block_rows < 1 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int* rp = static_cast<const int*>(row_ptr);
+  const int* cp = static_cast<const int*>(col);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case DT_F32: return launch_packed<float>(rp, cp, val, x, x_jstride, out, rows, block_rows, k, s);
+    case DT_F64: return launch_packed<double>(rp, cp, val, x, x_jstride, out, rows, block_rows, k, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" int spmm_fused_launch(const void* idx, const void* data, const void* x,
                                  long long x_jstride, const void* y, void* out, void* contrib,
                                  int J, int R, int S, int bp, int bn, int k, int dtype,
                                  void* stream) {
-  return dispatch<true>(dtype, idx, data, x, x_jstride, y, out, contrib, J, R, S, bp, bn, k,
-                        stream);
+  const int* ip = static_cast<const int*>(idx);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case DT_F32:
+      return launch_fused<float>(ip, data, x, x_jstride, y, out, contrib, J, R, S, bp, bn, k, s);
+    case DT_F64:
+      return launch_fused<double>(ip, data, x, x_jstride, y, out, contrib, J, R, S, bp, bn, k, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -1,9 +1,11 @@
 """Plain PyTorch versions of the blocked-ELL SpMM kernels, plus densifying
 oracles for the tests.
 
-``spmm_plain`` and ``spmm_fused_plain`` have the kernels' interfaces and
-outputs (gather + einsum, in the data dtype); the CPU path of the wrappers
-and the matrix-free solver's ``use_kernels=False`` products run them.
+``spmm_plain`` and ``spmm_fused_plain`` have the ELL interfaces and outputs
+(gather + einsum, in the data dtype); the CPU path of the wrappers and the
+matrix-free solver's ``use_kernels=False`` products run them.
+``spmm_packed_plain`` is the packed kernel's plain version (a segment sum over
+the packed entries), which ``spmm_packed`` takes on a CPU tensor.
 ``blocked_ell_to_dense``, ``spmm_ref`` and ``spmm_fused_ref`` copy the JAX
 package's oracles (``repro/kernels/spmm/ref.py``): they densify every shard
 and multiply in float32, exactly what the matrix-free path exists to avoid.
@@ -27,6 +29,20 @@ def spmm_plain(
     """Σ_s data[j, r, s] @ x[j, indices[j, r, s]] as (J, R*bp, k)."""
     out = torch.einsum("jrspb,jrsbk->jrpk", data, _gather_tiles(indices, x))
     return out.reshape(data.shape[0], -1, x.shape[-1])
+
+
+def spmm_packed_plain(packed, x: torch.Tensor) -> torch.Tensor:
+    """The product of a ``pack.Packed`` operator with x (J, C, bn, k):
+    Σ val·x[j, col] per row, as (J, block_rows, k) in the data dtype."""
+    J, k = packed.num_blocks, x.shape[-1]
+    rows = J * packed.block_rows
+    counts = (packed.row_ptr[1:] - packed.row_ptr[:-1]).long()
+    row = torch.repeat_interleave(torch.arange(rows, device=x.device), counts)
+    xf = x.reshape(J, -1, k)
+    terms = packed.val[:, None] * xf[row // packed.block_rows, packed.col.long()]
+    out = torch.zeros((rows, k), dtype=packed.val.dtype, device=x.device)
+    out.index_add_(0, row, terms)
+    return out.reshape(J, packed.block_rows, k)
 
 
 def spmm_fused_plain(

@@ -14,7 +14,9 @@ module keeps the matrix blocked-sparse on the device:
     products the matrix-free solver builds its projections from
     (``repro_torch.core.matfree``): the hand-written CUDA kernels under
     ``use_kernels=True`` (``repro_torch.kernels.spmm``), gather + einsum +
-    ``index_add_`` otherwise.
+    ``index_add_`` otherwise. ``with_packed`` adds the packed-nonzero form
+    of every stored shard (a CSR of its nonzeros, derived, never saved),
+    which the kernel path's forward products stream instead of the tiles.
 
 The layout is built on the host by numpy code copied from the JAX package's
 ``sparse/bsr.py``, so both packages give equal index and data arrays, bit
@@ -37,6 +39,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.spmm import ops as spmm_ops
+from repro_torch.kernels.spmm.pack import Packed, pack
 from repro_torch.kernels.spmm.ref import spmm_fused_plain, spmm_plain
 from repro_torch.sparse.matrix import COOMatrix
 
@@ -265,9 +268,14 @@ def _scatter_contrib(indices, contrib, num_col_blocks):
     return out.reshape(J, C * bn, k)
 
 
-def _spmm(indices, data, xb, use_kernels: bool) -> torch.Tensor:
-    """(J, R*bp, k) blocked-ELL product: the hand kernel or the plain one."""
-    return (spmm_ops.spmm if use_kernels else spmm_plain)(indices, data, xb)
+def _spmm(indices, data, packed, xb, use_kernels: bool) -> torch.Tensor:
+    """(J, R*bp, k) product of one shard stack: the packed kernel on its
+    packed form, or (no packed form) the ELL wrapper, or the plain one."""
+    if not use_kernels:
+        return spmm_plain(indices, data, xb)
+    if packed is None:
+        return spmm_ops.spmm(indices, data, xb)
+    return spmm_ops.spmm_packed(packed, xb)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -380,6 +388,12 @@ class PartitionedBSR:
     balanced row order: ``ext_pos[j, q]`` is the external row at internal
     position q and ``int_pos[j, q]`` its inverse. The Gram shards and every
     public product keep the EXTERNAL row order.
+
+    ``fwd_packed``/``tra_packed``/``gram_packed`` are the packed-nonzero
+    forms of the stored shards (``with_packed``): derived, not state, so
+    ``to_arrays`` leaves them out and ``from_arrays(packed=True)`` rebuilds
+    them. The matrix-free solver builds them on the card when it runs with
+    kernels; ``nbytes`` counts them.
     """
 
     fwd_indices: torch.Tensor  # (J, Rp, S) int32
@@ -394,6 +408,9 @@ class PartitionedBSR:
     ext_pos: torch.Tensor | None = None  # (J, p_pad) int32: internal -> external
     int_pos: torch.Tensor | None = None  # (J, p_pad) int32: external -> internal
     planned: bool = False  # built from a non-uniform PartitionPlan
+    fwd_packed: Packed | None = dataclasses.field(default=None, repr=False)
+    tra_packed: Packed | None = dataclasses.field(default=None, repr=False)
+    gram_packed: Packed | None = dataclasses.field(default=None, repr=False)
 
     @property
     def device(self) -> torch.device:
@@ -413,9 +430,12 @@ class PartitionedBSR:
 
     @property
     def nbytes(self) -> int:
-        """Device-resident bytes of the sparse operator (all present parts)."""
+        """Device-resident bytes of the sparse operator (all present parts,
+        the packed forms included)."""
         arrs = (getattr(self, f) for f in _ARRAY_FIELDS)
-        return int(sum(a.numel() * a.element_size() for a in arrs if a is not None))
+        total = sum(a.numel() * a.element_size() for a in arrs if a is not None)
+        packs = (self.fwd_packed, self.tra_packed, self.gram_packed)
+        return int(total + sum(p.nbytes for p in packs if p is not None))
 
     @property
     def dense_bytes(self) -> int:
@@ -549,6 +569,20 @@ class PartitionedBSR:
             ext_pos=put(ext_np), int_pos=put(int_np), planned=use_plan,
         )
 
+    def with_packed(self) -> "PartitionedBSR":
+        """This operator plus the packed-nonzero form of every stored shard
+        stack (``kernels.spmm.pack``), built on the operator's device."""
+
+        def packed(indices, data):
+            return None if indices is None else pack(indices, data)
+
+        return dataclasses.replace(
+            self,
+            fwd_packed=packed(self.fwd_indices, self.fwd_data),
+            tra_packed=packed(self.tra_indices, self.tra_data),
+            gram_packed=packed(self.gram_indices, self.gram_data),
+        )
+
     # -- mesh placement ------------------------------------------------------
 
     def shard_spec(self, axes):
@@ -588,7 +622,8 @@ class PartitionedBSR:
     def matvec(self, x: torch.Tensor, use_kernels: bool = False) -> torch.Tensor:
         """A_j x_j for every block: x (J, n, k) — or (n, k), broadcast to all
         blocks — returns (J, p_pad, k). Padded rows come back exactly zero."""
-        out = _spmm(self.fwd_indices, self.fwd_data, self._col_tiles(x), use_kernels)
+        out = _spmm(self.fwd_indices, self.fwd_data, self.fwd_packed, self._col_tiles(x),
+                    use_kernels)
         return self._to_external(out)
 
     def rmatvec(self, y: torch.Tensor, use_kernels: bool = False) -> torch.Tensor:
@@ -608,7 +643,7 @@ class PartitionedBSR:
                     "PartitionedBSR.from_coo(..., with_transpose=True)"
                 )
             yb = _pad_cols(y, self.p_pad, bp)
-            return _spmm(self.tra_indices, self.tra_data, yb, use_kernels)[:, :n]
+            return _spmm(self.tra_indices, self.tra_data, self.tra_packed, yb, use_kernels)[:, :n]
         J = self.num_blocks
         yb = y.reshape(J, self.p_pad // bp, bp, -1)
         contrib = torch.einsum("jrspb,jrpk->jrsbk", self.fwd_data, yb)
@@ -639,7 +674,7 @@ class PartitionedBSR:
         if self.gram_indices is None:
             return self.matvec(self.rmatvec(y, use_kernels), use_kernels)
         yb = _pad_cols(y, self.p_pad, self.block_shape[0])
-        return _spmm(self.gram_indices, self.gram_data, yb, use_kernels)
+        return _spmm(self.gram_indices, self.gram_data, self.gram_packed, yb, use_kernels)
 
     def gram_diag(self) -> torch.Tensor:
         """diag(A_j A_jᵀ) per block — (J, p_pad) row sums of squares in
@@ -686,20 +721,23 @@ class PartitionedBSR:
         return arrays, meta
 
     @classmethod
-    def from_arrays(cls, arrays, meta: dict, prefix: str = "op_", device=None):
+    def from_arrays(cls, arrays, meta: dict, prefix: str = "op_", device=None,
+                    packed: bool = False):
         """Rebuild on ``device`` from ``to_arrays`` output — this package's
-        or the JAX package's (extra keys in ``arrays`` are ignored)."""
+        or the JAX package's (extra keys in ``arrays`` are ignored);
+        ``packed`` rebuilds the packed forms too (``with_packed``)."""
         dev = resolve_device(device)
         kwargs = {
             name: _tensor(np.asarray(arrays[prefix + name]), dev)
             for name in _ARRAY_FIELDS
             if prefix + name in arrays
         }
-        return cls(
+        op = cls(
             shape=tuple(meta["shape"]), p=int(meta["p"]),
             p_pad=int(meta["p_pad"]),
             planned=bool(meta.get("planned", False)), **kwargs,
         )
+        return op.with_packed() if packed else op
 
     def block_rhs(self, b: np.ndarray) -> torch.Tensor:
         """RHS (m,) or (m, k) -> (J, p_pad, k) on the device, zero-padded

@@ -11,11 +11,13 @@ import torch
 from repro_torch.kernels.project import ops as project_ops
 from repro_torch.kernels.project.ref import consensus_update_ref, project_ref
 from repro_torch.kernels.spmm import ops as spmm_ops
-from repro_torch.kernels.spmm.ref import spmm_fused_plain, spmm_plain
+from repro_torch.kernels.spmm.pack import pack
+from repro_torch.kernels.spmm.ref import spmm_fused_plain, spmm_packed_plain, spmm_plain
 from repro_torch.kernels.trisolve import ops as trisolve_ops
 from repro_torch.kernels.trisolve.ref import trisolve_ref
 from repro_torch.sparse import PartitionedBSR, generate_schenk_like
 from repro_torch.sparse.bsr import _pad_cols
+from repro_torch.sparse.matrix import COOMatrix
 
 pytestmark = pytest.mark.gpu
 
@@ -62,6 +64,36 @@ def test_trisolve_f64(cuda, transpose):
     want = trisolve_ref(r, y, lower=transpose, transpose=transpose)
     got = trisolve_ops.trisolve(r.to(cuda), y.to(cuda), lower=transpose, transpose=transpose)
     torch.testing.assert_close(got.cpu(), want, atol=1e-9, rtol=1e-9)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["upper", "lower_transposed"])
+def test_trisolve_k1_ragged(cuda, dtype, case):
+    transpose = case == "lower_transposed"
+    r, y = _tri(2, 777, 1, dtype, seed=5)
+    want = trisolve_ref(r, y, lower=transpose, transpose=transpose)
+    got = trisolve_ops.trisolve(r.to(cuda), y.to(cuda), lower=transpose, transpose=transpose)
+    rtol = 1e-4 if dtype == torch.float32 else 1e-9
+    _relclose(got.cpu(), want, rtol)
+
+
+@pytest.mark.parametrize("n", [4096, 4097])
+@pytest.mark.parametrize("case", ["upper", "lower_transposed"])
+def test_trisolve_stress_repeatable(cuda, n, case):
+    """A large grid (8 x 65 row blocks x 8 k-tiles) launched 20 times: the
+    ticket/flag order must never change a bit of the result."""
+    J, k = 8, 64
+    transpose = case == "lower_transposed"
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    r = torch.randn(J, n, n, generator=gen, device=cuda).triu_() / n**0.5
+    d = torch.randn(J, n, generator=gen, device=cuda)
+    r.diagonal(dim1=1, dim2=2).copy_(torch.sign(d + 0.5) * (3.0 + d.abs()))
+    y = torch.randn(J, n, k, generator=gen, device=cuda)
+    first = trisolve_ops.trisolve(r, y, lower=transpose, transpose=transpose)
+    for _ in range(19):
+        again = trisolve_ops.trisolve(r, y, lower=transpose, transpose=transpose)
+        assert torch.equal(again, first)
+    _relclose(first, trisolve_ref(r, y, lower=transpose, transpose=transpose), 1e-4)
 
 
 def _proj_inputs(J, p, n, k, w_dtype, x_dtype, seed):
@@ -227,6 +259,65 @@ def test_spmm_broadcast_x_and_checks(cuda):
         spmm_ops.spmm(idx, data, xb.cpu())
 
 
+def _shards(bshape, dtype, n=200, J=3, seed=0):
+    """(name, indices, data) of the forward, transposed and Gram shards of a
+    balanced Schenk-like operator, on the CPU."""
+    coo = generate_schenk_like(n, sparsity=0.95, seed=seed)
+    op = PartitionedBSR.from_coo(coo, J, bshape, dtype=np.dtype(str(dtype).split(".")[1]),
+                                 with_transpose=True, with_gram=True, balance=True, device="cpu")
+    return op, [("fwd", op.fwd_indices, op.fwd_data), ("tra", op.tra_indices, op.tra_data),
+                ("gram", op.gram_indices, op.gram_data)]
+
+
+@pytest.mark.parametrize("bshape", [(8, 8), (16, 8)])
+@pytest.mark.parametrize("k", [1, 5, 32, 40])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_spmm_packed_on_all_shards(cuda, bshape, k, dtype):
+    """The packed kernel against its plain versions, bit-identical across two
+    launches and, on finite inputs, to the ELL fused kernel's forward output
+    (the same products added in the same order)."""
+    _, shards = _shards(bshape, dtype, seed=k)
+    rng = np.random.default_rng(k)
+    rtol = 1e-4 if dtype == torch.float32 else 1e-12
+    for name, idx, data in shards:
+        J, R, S, bp, bn = data.shape
+        C = int(idx.max()) + 1
+        xb = torch.as_tensor(rng.standard_normal((J, C, bn, k)), dtype=dtype)
+        y = torch.as_tensor(rng.standard_normal((J, R, bp, k)), dtype=dtype)
+        packed = pack(idx.to(cuda), data.to(cuda))
+        got = spmm_ops.spmm_packed(packed, xb.to(cuda))
+        assert got.dtype == dtype and got.shape == (J, R * bp, k), name
+        _spmm_close(got.cpu(), spmm_plain(idx, data, xb), rtol)
+        _spmm_close(got.cpu(), spmm_packed_plain(pack(idx, data), xb), rtol)
+        assert torch.equal(spmm_ops.spmm_packed(packed, xb.to(cuda)), got), name
+        ell, _ = spmm_ops.spmm_fused(idx.to(cuda), data.to(cuda), xb.to(cuda), y.to(cuda))
+        assert torch.equal(got, ell), name
+
+
+def test_spmm_packed_broadcast_empty_and_explicit_zeros(cuda):
+    op, _ = _shards((8, 8), torch.float32, seed=3)
+    packed = op.with_packed().fwd_packed
+    dev_packed = pack(op.fwd_indices.to(cuda), op.fwd_data.to(cuda))
+    x = torch.randn(op.shape[1], 6)
+    xb = op._col_tiles(x)
+    wide = _pad_cols(x.to(cuda), op.shape[1], 8)[None].expand(op.num_blocks, -1, -1, -1)
+    assert wide.stride(0) == 0  # one (n, k) operand for every block
+    got = spmm_ops.spmm_packed(dev_packed, wide)
+    assert torch.equal(got, spmm_ops.spmm_packed(dev_packed, wide.contiguous()))
+    _spmm_close(got.cpu(), spmm_packed_plain(packed, xb), 1e-4)
+    # an all-zero matrix (one padding slot, no nonzeros) and COO zeros
+    empty = COOMatrix(np.empty(0, np.int32), np.empty(0, np.int32), np.empty(0, np.float32), (16, 16))
+    eop = PartitionedBSR.from_coo(empty, 2, device=cuda).with_packed()
+    assert eop.fwd_packed.nnz == 0
+    assert torch.count_nonzero(eop.matvec(torch.ones(16, 3, device=cuda), use_kernels=True)) == 0
+    zeros = COOMatrix(np.array([0, 1, 9]), np.array([3, 4, 12]),
+                      np.array([2.0, 0.0, 5.0], np.float32), (16, 16))
+    zop = PartitionedBSR.from_coo(zeros, 1, device=cuda).with_packed()
+    assert zop.fwd_packed.nnz == 2
+    xz = torch.randn(16, 2, device=cuda)
+    torch.testing.assert_close(zop.matvec(xz, use_kernels=True), zop.matvec(xz), atol=0, rtol=0)
+
+
 @pytest.mark.parametrize("gram_solver", ["direct", "pcg"])
 def test_matfree_kernels_match_plain_on_card(cuda, gram_solver):
     from repro_torch.core import prepare
@@ -242,6 +333,11 @@ def test_matfree_kernels_match_plain_on_card(cuda, gram_solver):
         res[kernels] = prep.solve(B, num_epochs=40)
         launched = {key: spmm_ops.launches[key] - before[key] for key in before}
         assert (launched["spmm"] > 0 and launched["spmm_fused"] == 40) == kernels, launched
+        # the kernel path carries the packed forms, and a restore rebuilds them
+        packs = (prep.op.fwd_packed, prep.op.tra_packed, prep.op.gram_packed)
+        assert all((p is not None) == kernels for p in packs)
+        again = type(prep).from_state(*prep.to_state(), device=cuda)
+        assert again.memory_bytes == prep.memory_bytes
     scale = float(np.abs(res[False].x).max())
     np.testing.assert_allclose(res[True].x, res[False].x, atol=2.5e-4 * scale)
     np.testing.assert_array_equal(res[True].history["inner_iters"].shape, (40, 6))

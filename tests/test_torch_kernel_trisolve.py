@@ -4,9 +4,10 @@ kernel (interpret mode) and its ``trisolve_ref`` oracle.
 
 The port takes R (J, n, n) and y (J, n, k) in one call; the reference solves
 one (n,) column, so it is vmapped over J and k here exactly as
-``repro.core.dapc._trisolve`` vmaps it. The CUDA kernel itself is held
-against the same plain version on the card (``tests/test_torch_cuda.py``,
-``chip_smoke.py``).
+``repro.core.dapc._trisolve`` vmaps it. ``trisolve_blocked_plain`` spells out
+the CUDA kernel's 64-row blocking and is held to the same references on
+ragged n. The CUDA kernel itself is held against the plain versions on the
+card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
 import jax
 import jax.numpy as jnp
@@ -17,7 +18,7 @@ import torch
 from repro.kernels.trisolve import ops as jops
 from repro.kernels.trisolve.ref import trisolve_ref as jref
 from repro_torch.kernels.trisolve import ops
-from repro_torch.kernels.trisolve.ref import trisolve_ref
+from repro_torch.kernels.trisolve.ref import trisolve_blocked_plain, trisolve_ref
 
 
 def _mk(J, n, k, seed, dtype=np.float32):
@@ -61,6 +62,41 @@ def test_plain_matches_reference(J, n, k, case):
     assert got.shape == (J, n, k) and got.dtype == torch.float32
     _relclose(got, _jax_batched(jops.trisolve, op_r, y, lower), 1e-4)
     _relclose(got, _jax_batched(jref, op_r, y, lower), 1e-4)
+
+
+def _cases(J, n, k, case, seed, dtype=np.float32):
+    """(R as the port reads it, op(R) as the reference takes it, y, lower,
+    transpose) for one of upper / lower / lower_on_transpose."""
+    r, y = _mk(J, n, k, seed=seed, dtype=dtype)
+    lower = case != "upper"
+    transpose = case == "lower_on_transpose"
+    op_r = np.ascontiguousarray(np.swapaxes(r, 1, 2)) if lower else r
+    return (r if transpose else op_r), op_r, y, lower, transpose
+
+
+@pytest.mark.parametrize("k", [1, 8, 9, 33])
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 129, 777])
+@pytest.mark.parametrize("case", ["upper", "lower", "lower_on_transpose"])
+def test_blocked_plain_matches_reference(n, k, case):
+    """The kernel's row-block decomposition, ragged n included (64-row
+    blocks: 63, 64 and 65 straddle one edge, 777 ends on a 9-row block)."""
+    r_in, op_r, y, lower, transpose = _cases(2, n, k, case, seed=n + 7 * k)
+    got = trisolve_blocked_plain(torch.from_numpy(r_in), torch.from_numpy(y), lower, transpose)
+    assert got.shape == (2, n, k) and got.dtype == torch.float32
+    want = trisolve_ref(torch.from_numpy(r_in), torch.from_numpy(y), lower, transpose)
+    _relclose(got, want, 1e-4)
+    _relclose(got, _jax_batched(jops.trisolve, op_r, y, lower), 1e-4)
+
+
+@pytest.mark.parametrize("case", ["upper", "lower", "lower_on_transpose"])
+def test_blocked_plain_f64_with_x64(case):
+    r_in, op_r, y, lower, transpose = _cases(2, 129, 9, case, seed=11, dtype=np.float64)
+    got = trisolve_blocked_plain(torch.from_numpy(r_in), torch.from_numpy(y), lower, transpose)
+    assert got.dtype == torch.float64
+    with jax.enable_x64(True):
+        want = _jax_batched(jref, op_r, y, lower)
+    assert want.dtype == np.float64
+    _relclose(got, want, 1e-9)
 
 
 def test_solves_the_system():
