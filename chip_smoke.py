@@ -7,9 +7,12 @@
 2. builds the hand-written kernels from ``src/repro_torch/csrc`` (one nvcc
    per source, in parallel) and prints nvcc's ``-Xptxas -v`` report;
 3. holds each dense-path kernel against its plain PyTorch version on the
-   card at the main path's shapes, and times the kernel, the plain version
-   and one PyTorch library call computing the same function (a yardstick
-   only; the port never calls it);
+   card at the main path's shapes (and the consensus update at the dense
+   scale run's W (8, 2048, 4096), k = 64), and times the kernel, the plain
+   version and one PyTorch library call computing the same function (a
+   yardstick only; the port never calls it); then times two design choices
+   of the consensus update, ungated: W's unaligned rows against a copy
+   padded to a multiple of 4 columns, and its split target;
 4. drives the dense main path — ``repro_torch.launch.solve`` with
    ``--kernels --implicit-p`` at the paper's Table 1 shape m=9308, n=2327,
    k=32, 80 epochs, J=2 (tall: the upper trisolve) and J=8 (wide: the lower
@@ -37,7 +40,7 @@
 7. prints the kernel table as one JSON line, the card line again, and the
    ``{"ok": true, "device": ...}`` line last.
 
-The trisolve and SpMM cases are timed twice: with CUDA events around
+The kernel cases are timed twice: with CUDA events around
 back-to-back calls (``ms``, which includes the Python wrapper's host cost
 where a call is shorter than it) and as a CUDA-graph replay of the same
 calls, which the card runs without waiting for the host (``device_ms``;
@@ -75,9 +78,13 @@ MATFREE_AGREEMENT = 2.5e-4
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and the highest dense
 # FLOP/s for each input type (f32 outside the tensor cores; f64 and bf16 on
-# them), so that bound_ms is the least time the card could take
+# them), so that bound_ms is the least time the card could take. The
+# consensus update runs its f32 products on the tensor cores as three TF32
+# products (3xTF32, 495 TFLOP/s each), so its f32 operations count at a third
+# of the TF32 rate; the kernels that still run f32 on CUDA cores keep 67.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "float64": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "float64": 67e12, "bfloat16": 989e12,
+              "float32_3xtf32": 495e12 / 3}
 
 TRISOLVE_SRC = "src/repro_torch/csrc/trisolve.cu"
 PROJECT_SRC = "src/repro_torch/csrc/project.cu"
@@ -135,9 +142,9 @@ def device_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, flops: float, dtype_name: str) -> tuple[float, str]:
+def bound(nbytes: float, flops: float, rate: str) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    t_ops = flops / PEAK_FLOPS[rate] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -237,18 +244,23 @@ def kernel_phase(torch, trisolve_ops, trisolve_ref, project_ops, project_ref, cu
         ms = cuda_ms(torch, run, 20)
         plain_ms = cuda_ms(torch, plain, 5)
         lib = cuda_ms(torch, library, 20)
+        dev_ms = device_ms(torch, run, 20)
+        lib_dev = device_ms(torch, library, 20)
         sx = xbar.element_size()
         nbytes = J * p * n * w.element_size() + J * n * k * sx * (3 if with_x else 2)
         flops = 4.0 * J * p * n * k
-        b_ms, b_by = bound(nbytes, flops, str(w.dtype).split(".")[1])
+        rate = "bfloat16" if w.dtype == torch.bfloat16 else "float32_3xtf32"
+        b_ms, b_by = bound(nbytes, flops, rate)
         results[name] = {
             "shape": f"W ({J}, {p}, {n}) {str(w.dtype).split('.')[1]}, x̄ ({J}, {n}, {k}) "
                      f"{str(x_dtype).split('.')[1]}" + (", x and per-block γ" if with_x else ", project"),
             "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+            "device_ms": dev_ms, "library_device_ms": lib_dev,
         }
-        print(f"  {name:26s} err {err:.3e} (tol {tol:.1e})  kernel {ms:.4f} ms  "
-              f"plain {plain_ms:.4f} ms  library {lib:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+        print(f"  {name:30s} err {err:.3e} (tol {tol:.1e})  kernel {ms:.4f} ms (device "
+              f"{dev_ms:.4f})  plain {plain_ms:.4f} ms  library {lib:.4f} ms (device "
+              f"{lib_dev:.4f})  bound {b_ms:.4f} ms ({b_by})")
         check(err <= tol, f"{name}: max error {err} above {tol}")
 
     f32, f64 = torch.float32, torch.float64
@@ -264,7 +276,44 @@ def kernel_phase(torch, trisolve_ops, trisolve_ref, project_ops, project_ref, cu
     proj_case("consensus_update.wide.x_gamma", w_wide, 32, f32, with_x=True)
     proj_case("consensus_update.wide.bf16", w_wide.to(torch.bfloat16), 32, torch.bfloat16,
               with_x=False)
+    design_checks(torch, project_ops, gen, {"tall": w_tall, "wide": w_wide})
+    w_scale, _ = factors(8, 2048, 4096, f32, tall=False)
+    proj_case("consensus_update.scale", w_scale, 64, f32, with_x=False)
     return results
+
+
+def design_checks(torch, project_ops, gen, factors):
+    """Two choices of the consensus-update kernel, timed on the card (device
+    time by CUDA-graph replay, k = 32), printed and not gated:
+    (a) W's rows as they are (n = 2327: 4-byte copies) against (b) a copy
+    padded by a zero column to n = 2328, whose rows are 16-byte aligned;
+    and the split target (thread blocks a pass is cut into) around its
+    value."""
+    dev = torch.device("cuda")
+    for label, w in factors.items():
+        J, p, n = w.shape
+        xbar = torch.randn(J, n, 32, generator=gen, device=dev)
+        n4 = -(-n // 4) * 4
+        w_pad = torch.nn.functional.pad(w, (0, n4 - n)).contiguous()
+        xbar_pad = torch.nn.functional.pad(xbar, (0, 0, 0, n4 - n)).contiguous()
+        a = device_ms(torch, lambda: project_ops.project(w, xbar), 20)
+        b = device_ms(torch, lambda: project_ops.project(w_pad, xbar_pad), 20)
+        diff = float((project_ops.project(w_pad, xbar_pad)[:, :n] - project_ops.project(w, xbar))
+                     .abs().max())
+        print(f"  design {label}: rows as they are (n={n}) {a:.4f} ms, padded to n={n4} "
+              f"{b:.4f} ms (device; max |diff| {diff:.2e})")
+        default = project_ops.TARGET_BLOCKS
+        times = {}
+        try:
+            for target in (132, 264, 528, 1056):
+                project_ops.TARGET_BLOCKS = target
+                plan = project_ops.split_plan(J, p, n, 32)
+                times[f"{target} ({plan.splits1}x, {plan.splits2}x)"] = device_ms(
+                    torch, lambda: project_ops.project(w, xbar), 20)
+        finally:
+            project_ops.TARGET_BLOCKS = default
+        print(f"  design {label}: split target (splits pass 1, pass 2) -> device ms "
+              + ", ".join(f"{key}: {t:.4f}" for key, t in times.items()))
 
 
 def reset_launches(ops) -> None:
@@ -564,7 +613,7 @@ def main() -> int:
     runs = {J: main_path_run(torch, launch_solve, ops, 2327, 9308, J, 32, gate=True)
             for J in (2, 8)}
     print("scale run (timed, not gated):")
-    main_path_run(torch, launch_solve, ops, 4096, 16384, 8, 64, gate=False)
+    scale = main_path_run(torch, launch_solve, ops, 4096, 16384, 8, 64, gate=False)
 
     print("matrix-free path (repro_torch.launch.solve --mode matfree --kernels --device cuda):")
     mf_small = matfree_run(torch, launch_solve, ops, 2327, "matfree", 300)
@@ -603,6 +652,8 @@ def main() -> int:
         entry("consensus_update.wide", PROJECT_SRC, PROJECT_TPU,
               runs[8]["launches"]["consensus_update"], "consensus_update.wide",
               ["consensus_update.wide.x_gamma", "consensus_update.wide.bf16"]),
+        entry("consensus_update.scale", PROJECT_SRC, PROJECT_TPU,
+              scale["launches"]["consensus_update"], "consensus_update.scale"),
         entry("spmm.matfree_2327", SPMM_SRC, SPMM_TPU, mf_small["launches"]["spmm"],
               "spmm.fwd.n2327", ["spmm.fwd.n2327.k1", "spmm.tile16x8"]),
         entry("spmm.matfree_16384", SPMM_SRC, SPMM_TPU, mf_big["launches"]["spmm"],

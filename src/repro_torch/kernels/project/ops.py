@@ -6,6 +6,10 @@ its single-column Pallas kernel over the J blocks and k columns. A CPU
 tensor takes the plain version (``ref.consensus_update_ref``); a CUDA
 tensor launches the kernel or raises.
 
+The kernel runs its f32 products on the tensor cores as three TF32 products
+(3xTF32) and splits each pass's reduction over several thread blocks;
+``split_plan`` picks the split from the shapes alone and sizes the scratch.
+
 Differentiable: the backward is the closed implicit-projection formula in
 plain PyTorch (P is symmetric idempotent), as the reference's ``custom_vjp``
 backward is plain jnp — the dense P is never built in either direction.
@@ -13,6 +17,7 @@ backward is plain jnp — the dense P is never built in either direction.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -24,14 +29,72 @@ launches = 0
 
 _DTYPES = (torch.float32, torch.bfloat16, torch.float64)
 
+# tiling of csrc/project.cu, kept in step with it: a thread block computes a
+# TILE-row output tile for up to 64 columns of k, reducing in DEPTH-deep steps
+TILE, DEPTH = 64, 32
+# each pass is split until it has about this many thread blocks of 32
+# columns (two blocks fit an SM: four waves on the H100's 132 SMs; a 64-column
+# block does twice the work, so half as many), keeping at least MIN_STEPS
+# reduction steps a block
+TARGET_BLOCKS = 528
+MIN_STEPS = 4
+
+
+class SplitPlan(NamedTuple):
+    """How one call is cut: ``kt`` columns per block in ``kgroups`` column
+    groups, pass 1 (u = W v, over n) in ``splits1`` ranges and pass 2
+    (Wᵀ u, over p) in ``splits2``; the float32 scratch (padded u, then each
+    pass's partial tiles) and the int32 tickets, one per output tile of a
+    pass that splits."""
+    kt: int
+    kgroups: int
+    splits1: int
+    splits2: int
+    u_floats: int
+    part1_floats: int
+    part2_floats: int
+    tickets: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _splits(tiles: int, depth: int, target: int) -> int:
+    """Ranges the reduction of ``depth`` is cut into for ``tiles`` output
+    tiles: enough for ``target`` blocks, each at least MIN_STEPS steps, and
+    no range empty."""
+    steps = _cdiv(depth, DEPTH)
+    want = max(1, min(_cdiv(target, max(tiles, 1)), steps // MIN_STEPS))
+    return _cdiv(steps, _cdiv(steps, want)) if steps else 1
+
+
+def split_plan(J: int, p: int, n: int, k: int) -> SplitPlan:
+    """The kernel's cut of a (J, p, n) × (J, n, k) call: a function of the
+    shapes only."""
+    kt = 32 if k <= 32 else 64
+    kgroups = _cdiv(k, kt)
+    ptiles, ntiles = _cdiv(p, TILE), _cdiv(n, TILE)
+    target = TARGET_BLOCKS * 32 // kt
+    s1 = _splits(J * ptiles * kgroups, n, target)
+    s2 = _splits(J * ntiles * kgroups, p, target)
+    tile = TILE * kt
+    return SplitPlan(
+        kt=kt, kgroups=kgroups, splits1=s1, splits2=s2,
+        u_floats=J * ptiles * TILE * kgroups * kt,
+        part1_floats=J * ptiles * kgroups * s1 * tile if s1 > 1 else 0,
+        part2_floats=J * ntiles * kgroups * s2 * tile if s2 > 1 else 0,
+        tickets=J * kgroups * (ptiles * (s1 > 1) + ntiles * (s2 > 1)),
+    )
+
 
 def _lib():
     lib = _build.load("project")
     fn = lib.consensus_update_launch
     if fn.argtypes is None:
         fn.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_float] + [ctypes.c_void_p] * 2
-            + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 4 + [ctypes.c_float] + [ctypes.c_void_p] * 5
+            + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
     return fn
@@ -57,11 +120,18 @@ def _launch(w, x, xbar, gamma):
         gvec = gamma.to(device=dev, dtype=torch.float32).contiguous()
     else:
         gscalar = float(gamma)
-    u = torch.empty((J, p, k), dtype=torch.float32, device=dev)
+    plan = split_plan(J, p, n, k)
+    scratch = torch.empty(plan.u_floats + plan.part1_floats + plan.part2_floats,
+                          dtype=torch.float32, device=dev)
+    u, part1, part2 = scratch.split([plan.u_floats, plan.part1_floats, plan.part2_floats])
+    tickets = torch.zeros(plan.tickets, dtype=torch.int32, device=dev) if plan.tickets else None
     rc = _lib()(
         w.data_ptr(), None if x is None else x.data_ptr(), xbar.data_ptr(),
-        None if gvec is None else gvec.data_ptr(), gscalar, u.data_ptr(), out.data_ptr(),
-        J, p, n, k, w_code, x_code, _build.stream_handle(dev),
+        None if gvec is None else gvec.data_ptr(), gscalar,
+        u.data_ptr(), part1.data_ptr(), part2.data_ptr(),
+        None if tickets is None else tickets.data_ptr(), out.data_ptr(),
+        J, p, n, k, plan.kt, plan.splits1, plan.splits2, w_code, x_code,
+        _build.stream_handle(dev),
     )
     if rc != 0:
         raise RuntimeError(f"consensus_update kernel launch failed (cudaError {rc})")

@@ -184,6 +184,125 @@ def test_slice_kernels_match_plain_on_card(cuda, num_blocks):
     np.testing.assert_allclose(res[True].x, res[False].x, atol=1e-4)
 
 
+# -- the 3xTF32 split-K consensus update at awkward shapes -----------------------
+
+
+def _factor(J, p, n, seed, dtype=torch.float32):
+    """W as prepare() makes it: orthonormal rows for a wide block (p <= n),
+    orthonormal columns (the QR factor Q, (p, n)) for a tall one."""
+    rng = np.random.default_rng(seed)
+    if p <= n:
+        ws = [np.linalg.qr(rng.standard_normal((n, p)))[0].T for _ in range(J)]
+    else:
+        ws = [np.linalg.qr(rng.standard_normal((p, n)))[0] for _ in range(J)]
+    return torch.as_tensor(np.stack(ws), dtype=torch.float32).contiguous().to(dtype)
+
+
+def _cu_tol(v, want, bf16):
+    """chip_smoke.py's tolerance: P v cancels most of v on tall blocks, so
+    float32 rounding follows |v|, not the small result."""
+    scale = max(float(v.float().abs().max()), float(want.float().abs().max()))
+    return 0.05 + 0.05 * scale if bf16 else 2e-5 + 1e-4 * scale
+
+
+# (J, p, n, k): odd and even n, p off the 64-row tile, tall (p > n) and wide,
+# k in {1, 31, 32, 33, 64, 65}; the split plan of each is named in the id
+CU_SHAPES = [
+    pytest.param(2, 300, 129, 1, id="tall-n129-k1-s1x1-s2x2"),
+    pytest.param(2, 300, 129, 31, id="tall-n129-k31-s1x1-s2x2"),
+    pytest.param(3, 100, 1001, 32, id="wide-n1001-k32-s1x8-s2x1"),
+    pytest.param(3, 100, 1001, 33, id="wide-n1001-k33-s1x8-s2x1"),
+    pytest.param(2, 500, 257, 64, id="tall-n257-k64-s1x2-s2x4"),
+    pytest.param(2, 70, 2049, 65, id="wide-n2049-k65-2groups-s1x13"),
+    pytest.param(2, 1500, 700, 32, id="tall-n700-aligned-s1x5-s2x10"),
+    pytest.param(1, 130, 4097, 31, id="wide-n4097-k31-s1x26"),
+    pytest.param(3, 64, 256, 32, id="wide-n256-aligned-s1x2-s2x1"),
+]
+
+
+@pytest.mark.parametrize("J,p,n,k", CU_SHAPES)
+@pytest.mark.parametrize("form", ["x_block_gamma", "project"])
+def test_consensus_update_shapes(cuda, J, p, n, k, form):
+    rng = np.random.default_rng(p * 7 + n + k)
+    w = _factor(J, p, n, seed=n + k)
+    xbar = torch.as_tensor(rng.standard_normal((J, n, k)), dtype=torch.float32)
+    if form == "project":
+        x, gamma, v = None, 1.0, xbar
+        want = project_ref(w, xbar)
+        got = project_ops.project(w.to(cuda), xbar.to(cuda))
+    else:
+        x = torch.as_tensor(rng.standard_normal((J, n, k)), dtype=torch.float32)
+        gamma, v = torch.linspace(0.5, 1.5, J), xbar - x
+        want = consensus_update_ref(w, x, xbar, gamma)
+        got = project_ops.consensus_update(w.to(cuda), x.to(cuda), xbar.to(cuda), gamma.to(cuda))
+    assert got.shape == (J, n, k) and got.dtype == torch.float32
+    torch.testing.assert_close(got.cpu(), want, atol=_cu_tol(v, want, False), rtol=0)
+
+
+@pytest.mark.parametrize("w_dtype,x_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32), (torch.float64, torch.float64),
+    (torch.float32, torch.float64), (torch.float64, torch.float32),
+    (torch.float32, torch.bfloat16),
+])
+@pytest.mark.parametrize("J,p,n,k", [(2, 300, 129, 33), (3, 100, 1001, 32)])
+@pytest.mark.parametrize("with_x", [True, False])
+def test_consensus_update_dtype_shapes(cuda, w_dtype, x_dtype, J, p, n, k, with_x):
+    rng = np.random.default_rng(n + k)
+    w = _factor(J, p, n, seed=n, dtype=w_dtype)
+    xbar = torch.as_tensor(rng.standard_normal((J, n, k)), dtype=torch.float32).to(x_dtype)
+    x = (torch.as_tensor(rng.standard_normal((J, n, k)), dtype=torch.float32).to(x_dtype)
+         if with_x else torch.zeros_like(xbar))
+    gamma = torch.linspace(0.5, 1.5, J)
+    want = consensus_update_ref(w, x, xbar, gamma)
+    got = project_ops.consensus_update(w.to(cuda), x.to(cuda) if with_x else None,
+                                       xbar.to(cuda), gamma.to(cuda))
+    assert got.dtype == x_dtype
+    bf16 = torch.bfloat16 in (w_dtype, x_dtype)
+    tol = _cu_tol(xbar.float() - x.float(), want, bf16)
+    torch.testing.assert_close(got.cpu().float(), want.float(), atol=tol, rtol=0)
+
+
+def test_consensus_update_repeatable(cuda):
+    """The main path's wide shape launched 20 times: the split-K partials are
+    summed in one order whichever block finishes a tile, so no bit moves."""
+    J, p, n, k = 8, 1164, 2327, 32
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    w = torch.linalg.qr(torch.randn(J, n, p, generator=gen, device=cuda))[0].mT.contiguous()
+    xbar = torch.randn(J, n, k, generator=gen, device=cuda)
+    first = project_ops.project(w, xbar)
+    for _ in range(19):
+        assert torch.equal(project_ops.project(w, xbar), first)
+    want = project_ref(w, xbar)
+    torch.testing.assert_close(first, want, atol=_cu_tol(xbar, want, False), rtol=0)
+
+
+@pytest.mark.parametrize("J,p,n,k", [(2, 1500, 700, 32), (2, 300, 129, 33)])
+def test_consensus_update_graph_replay(cuda, J, p, n, k):
+    """A CUDA-graph capture of the call, replayed twice, gives the eager bits:
+    the scratch comes from the graph's pool and the tickets are zero again
+    after every launch."""
+    w = _factor(J, p, n, seed=1).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(J, n, k, generator=gen, device=cuda)
+    xbar = torch.randn(J, n, k, generator=gen, device=cuda)
+    gamma = torch.linspace(0.5, 1.5, J, device=cuda)
+    eager = project_ops.consensus_update(w, x, xbar, gamma)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        project_ops.consensus_update(w, x, xbar, gamma)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = project_ops.consensus_update(w, x, xbar, gamma)
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+
+
 # -- the blocked-ELL SpMM kernels ---------------------------------------------
 
 
