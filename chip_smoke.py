@@ -26,17 +26,24 @@
    at the paper's square n=2327 (99.85% sparse), k=32, 300 epochs, J=8,
    with the accelerated (γ, η) = (2.0, 1.9) and the direct Gram solver;
    then ``--mode auto`` at n=16384, 100 epochs, which must resolve the
-   matrix-free path with the PCG Gram solver. Each is checked against the
-   kernels-off solver restored from its own state on the card (within
-   2.5e-4·max|x|), the n=2327 residual against the JAX package's CPU value;
-6. holds the two SpMM kernels against their plain versions on the operators
+   matrix-free path with the PCG Gram solver. Each must launch the fused
+   packed pass once per epoch and the staged ELL kernel never, and is checked
+   against the kernels-off solver restored from its own state on the card
+   (within 2.5e-4·max|x|), the n=2327 residual against the JAX package's CPU
+   value. The warm solve's peak device memory and its largest difference
+   from the cold solve are printed, and, ungated, one warm solve of the same
+   solver without the transposed packed form, which takes the staged ELL
+   pass and its ``index_add_`` scatter;
+6. holds the SpMM kernels against their plain versions on the operators
    those runs prepared (forward, transposed and Gram shards): the
-   packed-nonzero ``spmm_packed`` on each operator's packed form, and the
-   blocked-ELL ``spmm_fused``; each timed beside one ``torch.sparse.mm``
-   (cuSPARSE) of the same shards laid out as a block-diagonal CSR matrix.
-   ``bound_ms`` counts the bytes the product needs (each nonzero's value and
-   column, the row pointers, x and the output once), ``bound_ell_ms`` the
-   stored ELL arrays;
+   packed-nonzero ``spmm_packed`` on each operator's packed form, the fused
+   packed pass on the forward and transposed packed forms (also bit for bit
+   against two ``spmm_packed`` launches), and the blocked-ELL ``spmm_fused``;
+   each timed beside ``torch.sparse.mm`` (cuSPARSE) of the same shards laid
+   out as block-diagonal CSR matrices (one call, or the pair for the fused
+   pass). ``bound_ms`` counts the bytes the product needs (each nonzero's
+   value and column, the row pointers, x, y and the outputs once),
+   ``bound_ell_ms`` the stored ELL arrays;
 7. prints the kernel table as one JSON line, the card line again, and the
    ``{"ok": true, "device": ...}`` line last.
 
@@ -51,6 +58,7 @@ Without CUDA, or without the repository beside it, it exits non-zero too.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -369,9 +377,10 @@ def main_path_run(torch, launch_solve, ops, n, m, J, k, gate):
     return out
 
 
-def profile_solve(torch, prep, b, x_ref, epochs) -> dict:
+def profile_solve(torch, prep, b, x_ref, epochs, label="one warm solve") -> dict:
     """Where one warm solve's time goes: device time by kernel and the
-    device's busy share of the host wall time, from torch.profiler."""
+    device's busy share of the host wall time, from torch.profiler. Prints
+    the eight largest rows and every row of the epoch's fused pass."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -387,12 +396,24 @@ def profile_solve(torch, prep, b, x_ref, epochs) -> dict:
         rows.append((dev_us, e.count, e.key))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
-    print(f"    profile of one warm solve: wall {wall * 1e3:.3f} ms, device busy "
+    print(f"    profile of {label}: wall {wall * 1e3:.3f} ms, device busy "
           f"{busy_ms:.3f} ms ({100 * busy_ms / (wall * 1e3):.1f}%), "
           f"{sum(r[1] for r in rows)} kernels run")
-    for dev_us, count, name in rows[:8]:
-        print(f"      {dev_us / 1e3:9.3f} ms  x{count:<5d} {name[:90]}")
+    for i, (dev_us, count, name) in enumerate(rows):
+        if i < 8 or "spmm_fused" in name:
+            print(f"      {dev_us / 1e3:9.3f} ms  x{count:<5d} {name[:90]}")
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms}
+
+
+def peak_memory_solve(torch, prep, b, x_ref, epochs):
+    """One solve with the device's peak allocation tracked: (result, peak
+    bytes allocated during it, bytes allocated before it)."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res = prep.solve(b, num_epochs=epochs, x_ref=x_ref)
+    torch.cuda.synchronize()
+    return res, torch.cuda.max_memory_allocated(), held
 
 
 def matfree_run(torch, launch_solve, ops, n, mode, epochs):
@@ -425,12 +446,24 @@ def matfree_run(torch, launch_solve, ops, n, mode, epochs):
     print("    packed forms on the card: " + ", ".join(
         f"{name} {p.nnz} nonzeros {p.nbytes / 1e6:.3f} MB" for name, p in packs.items()))
     check(record["path"] == "matfree", f"n={n}: path {record['path']}, expected matfree")
-    check(launches["spmm"] >= 1 and launches["spmm_fused"] >= 1,
-          f"n={n}: a kernel of the matrix-free path was not launched: {launches}")
+    check(launches["spmm"] >= 1 and launches["spmm_fused_packed"] == epochs,
+          f"n={n}: expected spmm and one fused packed pass per epoch: {launches}")
+    check(launches["spmm_fused"] == 0, f"n={n}: the staged ELL pass ran: {launches}")
     check(res.x.shape == (n, 32), f"n={n}: solution shape {res.x.shape}")
     check(bool(np.isfinite(res.x).all()), f"n={n}: non-finite solution")
-    warm = prep.solve(b, num_epochs=epochs, x_ref=x_ref).wall_seconds
-    print(f"    warm solve (same prepared solver, second call): {warm:.4f} s")
+    warm_res, peak, held = peak_memory_solve(torch, prep, b, x_ref, epochs)
+    warm = warm_res.wall_seconds
+    cold_vs_warm = float(np.abs(res.x - warm_res.x).max())
+    print(f"    warm solve (same prepared solver, second call): {warm:.4f} s, peak device "
+          f"memory {peak / 1e6:.3f} MB ({held / 1e6:.3f} MB held before it); "
+          f"max |x_cold - x_warm| {cold_vs_warm:.3e}")
+    staged = dataclasses.replace(prep, op=dataclasses.replace(prep.op, tra_packed=None))
+    staged_res, staged_peak, _ = peak_memory_solve(torch, staged, b, x_ref, epochs)
+    print(f"    staged ELL pass + index_add_ scatter (same solver without the transposed "
+          f"packed form, not gated): warm {staged_res.wall_seconds:.4f} s, peak device memory "
+          f"{staged_peak / 1e6:.3f} MB; max |x_staged - x_warm| "
+          f"{float(np.abs(staged_res.x - warm_res.x).max()):.3e}")
+    profile_solve(torch, staged, b, x_ref, epochs, label="the staged warm solve")
     arrays, meta = prep.to_state()
     plain = matfree.MatrixFreePreparedSolver.from_state(
         arrays, {**meta, "use_kernels": False}, device="cuda")
@@ -445,6 +478,8 @@ def matfree_run(torch, launch_solve, ops, n, mode, epochs):
     return {"record": record, "prep": prep, "launches": launches, "host_syncs": syncs,
             "setup_seconds": prep.setup_seconds, "solve_seconds": res.wall_seconds,
             "warm_solve_seconds": warm, "plain_warm_solve_seconds": warm0,
+            "warm_peak_bytes": peak, "staged_peak_bytes": staged_peak,
+            "max_abs_diff_cold_vs_warm": cold_vs_warm,
             "max_abs_diff_vs_plain": diff, "inner_mean": float(inner.mean()),
             "profile": profile}
 
@@ -461,8 +496,8 @@ def block_diag_csr(torch, indices, data, num_col_blocks):
     return coo.coalesce().to_sparse_csr()
 
 
-def spmm_phase(torch, spmm_ops, spmm_plain, spmm_packed_plain, spmm_fused_plain, op_small,
-               op_big):
+def spmm_phase(torch, spmm_ops, spmm_plain, spmm_packed_plain, spmm_fused_plain,
+               spmm_fused_packed_plain, op_small, op_big):
     """The SpMM kernels against their plain versions on the card, on the
     operators the matrix-free runs prepared (their packed forms included), at
     k = 32."""
@@ -548,8 +583,68 @@ def spmm_phase(torch, spmm_ops, spmm_plain, spmm_packed_plain, spmm_fused_plain,
     def row_tiles(op, k):  # its (J, R, bp, k) view for the fused kernel
         return rows(op, k).reshape(op.num_blocks, -1, op.block_shape[0], k)
 
+    def fused_packed_case(name, op, iters):
+        """The epoch's fused pass on the operator's packed forms, with the
+        main path's operands: x broadcast over the blocks, y per block."""
+        fwd_p, tra_p = op.fwd_packed, op.tra_packed
+        xb, yb = col_tiles(op, 32), row_tiles(op, 32)
+
+        def run():
+            return spmm_ops.spmm_fused_packed(fwd_p, tra_p, xb, yb)
+
+        def plain():
+            return spmm_fused_packed_plain(fwd_p, tra_p, xb, yb)
+
+        def pair():  # the two packed products as separate launches
+            return spmm_ops.spmm_packed(fwd_p, xb), spmm_ops.spmm_packed(tra_p, yb)
+
+        csr_f = block_diag_csr(torch, op.fwd_indices, op.fwd_data, xb.shape[1])
+        csr_t = block_diag_csr(torch, op.tra_indices, op.tra_data, yb.shape[1])
+        xs = xb.contiguous().reshape(-1, 32)
+        ys = yb.reshape(-1, 32)
+
+        def library():  # the torch.sparse.mm pair on block-diagonal CSR matrices
+            return torch.sparse.mm(csr_f, xs), torch.sparse.mm(csr_t, ys)
+
+        got, want, two, lib_out = run(), plain(), pair(), library()
+        torch.cuda.synchronize()
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        tol = min(1e-4 + 1e-4 * float(w.abs().max()) for w in want)
+        same = all(torch.equal(g, t) for g, t in zip(got, two))
+        lib_err = max(float((o.reshape(w.shape) - w).abs().max()) for o, w in zip(lib_out, want))
+        ms = cuda_ms(torch, run, iters)
+        plain_ms = cuda_ms(torch, plain, max(iters // 4, 3))
+        dev_ms = device_ms(torch, run, iters)
+        pair_dev = device_ms(torch, pair, iters)
+        lib = cuda_ms(torch, library, iters)
+        lib_dev = device_ms(torch, library, iters)
+        s = fwd_p.val.element_size()
+        nnz = fwd_p.nnz + tra_p.nnz
+        ptrs = (fwd_p.row_ptr.numel() + tra_p.row_ptr.numel()) * 4
+        need = (nnz * (s + 4) + ptrs + xb[0].numel() * s + yb.numel() * s
+                + sum(t.numel() for t in got) * s)
+        flops = 2.0 * nnz * 32
+        b_ms, b_by = bound(need, flops, str(fwd_p.val.dtype).split(".")[1])
+        results[name] = {
+            "shape": f"forward {fwd_p.nnz} + transposed {tra_p.nnz} nonzeros packed, rows "
+                     f"{fwd_p.num_blocks} x ({fwd_p.block_rows} + {tra_p.block_rows}), k 32, "
+                     "x broadcast over J, y per block",
+            "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+            "device_ms": dev_ms, "library_device_ms": lib_dev,
+            "spmm_packed_pair_device_ms": pair_dev, "identical_to_spmm_packed_pair": same,
+        }
+        print(f"  {name:24s} err {err:.3e} (tol {tol:.1e})  kernel {ms:.4f} ms (device "
+              f"{dev_ms:.4f}; two spmm_packed launches {pair_dev:.4f}, bit-identical {same})  "
+              f"plain {plain_ms:.4f} ms  library {lib:.4f} ms (device {lib_dev:.4f}, err "
+              f"{lib_err:.1e}, torch.sparse.mm pair)  bound {b_ms:.4f} ms ({b_by}, "
+              f"{need / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+        check(err <= tol, f"{name}: max error {err} above {tol}")
+        check(same, f"{name}: not bit-identical to the two spmm_packed launches")
+
     for label, op in (("n2327", op_small), ("n16384", op_big)):
         iters = 20 if label == "n2327" else 10
+        fused_packed_case(f"spmm_fused_packed.{label}", op, iters)
         case(f"spmm.fwd.{label}", "forward shards", op.fwd_indices, op.fwd_data,
              op.fwd_packed, col_tiles(op, 32), iters=iters)
         case(f"spmm_fused.{label}", "forward shards, fused", op.fwd_indices, op.fwd_data,
@@ -584,7 +679,12 @@ def main() -> int:
     from repro_torch.kernels.project import ops as project_ops
     from repro_torch.kernels.project.ref import consensus_update_ref, project_ref
     from repro_torch.kernels.spmm import ops as spmm_ops
-    from repro_torch.kernels.spmm.ref import spmm_fused_plain, spmm_packed_plain, spmm_plain
+    from repro_torch.kernels.spmm.ref import (
+        spmm_fused_packed_plain,
+        spmm_fused_plain,
+        spmm_packed_plain,
+        spmm_plain,
+    )
     from repro_torch.kernels.trisolve import ops as trisolve_ops
     from repro_torch.kernels.trisolve.ref import trisolve_ref
     from repro_torch.launch import solve as launch_solve
@@ -633,14 +733,17 @@ def main() -> int:
 
     print("SpMM kernel phase (kernel vs plain version on the card, operators of the runs above):")
     cases.update(spmm_phase(torch, spmm_ops, spmm_plain, spmm_packed_plain, spmm_fused_plain,
-                            mf_small["prep"].op, mf_big["prep"].op))
+                            spmm_fused_packed_plain, mf_small["prep"].op, mf_big["prep"].op))
 
-    def entry(name, source, replaces, launches, case, extra=()):
+    def entry(name, source, replaces, launches, case, extra=(), **notes):
         out = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-               "launches": launches, **cases[case]}
+               "launches": launches, **cases[case], **notes}
         if extra:
             out["cases"] = [{"name": e, **cases[e]} for e in extra]
         return out
+
+    staged = {"main_path": False,
+              "note": "the staged interface counterpart; the main path runs spmm_fused_packed"}
 
     kernels = [
         entry("trisolve.upper", TRISOLVE_SRC, TRISOLVE_TPU,
@@ -658,10 +761,15 @@ def main() -> int:
               "spmm.fwd.n2327", ["spmm.fwd.n2327.k1", "spmm.tile16x8"]),
         entry("spmm.matfree_16384", SPMM_SRC, SPMM_TPU, mf_big["launches"]["spmm"],
               "spmm.gram.n16384", ["spmm.fwd.n16384", "spmm.tra.n16384"]),
+        entry("spmm_fused_packed.matfree_2327", SPMM_SRC, SPMM_FUSED_TPU,
+              mf_small["launches"]["spmm_fused_packed"], "spmm_fused_packed.n2327"),
+        entry("spmm_fused_packed.matfree_16384", SPMM_SRC, SPMM_FUSED_TPU,
+              mf_big["launches"]["spmm_fused_packed"], "spmm_fused_packed.n16384"),
         entry("spmm_fused.matfree_2327", SPMM_SRC, SPMM_FUSED_TPU,
-              mf_small["launches"]["spmm_fused"], "spmm_fused.n2327", ["spmm_fused.tile16x8"]),
+              mf_small["launches"]["spmm_fused"], "spmm_fused.n2327", ["spmm_fused.tile16x8"],
+              **staged),
         entry("spmm_fused.matfree_16384", SPMM_SRC, SPMM_FUSED_TPU,
-              mf_big["launches"]["spmm_fused"], "spmm_fused.n16384"),
+              mf_big["launches"]["spmm_fused"], "spmm_fused.n16384", **staged),
     ]
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -20,14 +20,16 @@ which needs only sparse products with A_j / A_jᵀ plus an inner solve of the
 ``"auto"`` (the default) picks "direct" while the stacked inverses stay
 under ``DIRECT_GRAM_BYTES`` and "pcg" beyond.
 
-One outer epoch is a single fused pass over the forward tiles plus the
-inner Gram solve: the probe ``z_j = A_j x̄`` is carried across epochs,
-doubles as the residual metric and the projection input, and is rebuilt
-each epoch from x̄⁺ = KNOWN − (ηγ/J)·Σ_j A_jᵀy_j, where KNOWN needs no
-transpose product — so ``PartitionedBSR.fused_project`` (the fused SpMM
-kernel under ``use_kernels=True``) computes both tile products of an epoch
-from one read of the tiles. The inexact PCG path also carries
-``w_j = A_j x_j``, updated for free from the CG residual.
+One outer epoch is a single fused pass of tile products plus the inner
+Gram solve: the probe ``z_j = A_j x̄`` is carried across epochs, doubles as
+the residual metric and the projection input, and is rebuilt each epoch
+from x̄⁺ = KNOWN − (ηγ/J)·Σ_j A_jᵀy_j, where KNOWN needs no transpose
+product — so ``PartitionedBSR.fused_project`` computes both tile products
+of an epoch at once: with the kernels on the card, one launch of the fused
+packed SpMM kernel over the forward and transposed packed forms (no staged
+contributions, no scatter); otherwise one read of the forward ELL tiles.
+The inexact PCG path also carries ``w_j = A_j x_j``, updated for free from
+the CG residual.
 
 A port of the JAX package's ``core/matfree.py``. Its ``lax.scan`` is a
 Python loop that only queues device work and writes into preallocated
@@ -648,7 +650,8 @@ def prepare_matfree(
     Gram solution (PCG only). ``use_kernels`` routes every tile product
     through the hand-written SpMM kernels and stores the A_jᵀ shards they
     stream; on the card it also packs every shard stack's nonzeros once
-    (``PartitionedBSR.with_packed``) for the forward products.
+    (``PartitionedBSR.with_packed``), which every kernel product then
+    streams, the epoch's fused pass included.
 
     ``partition="cost_aware"`` assigns rows to blocks with
     ``PartitionPlan.cost_aware``; ``dynamics="per_block"`` estimates

@@ -5,7 +5,9 @@ oracles for the tests.
 (gather + einsum, in the data dtype); the CPU path of the wrappers and the
 matrix-free solver's ``use_kernels=False`` products run them.
 ``spmm_packed_plain`` is the packed kernel's plain version (a segment sum over
-the packed entries), which ``spmm_packed`` takes on a CPU tensor.
+the packed entries), which ``spmm_packed`` takes on a CPU tensor, and
+``spmm_fused_packed_plain`` the fused packed kernel's: the same on the forward
+and the transposed packed forms.
 ``blocked_ell_to_dense``, ``spmm_ref`` and ``spmm_fused_ref`` copy the JAX
 package's oracles (``repro/kernels/spmm/ref.py``): they densify every shard
 and multiply in float32, exactly what the matrix-free path exists to avoid.
@@ -43,6 +45,15 @@ def spmm_packed_plain(packed, x: torch.Tensor) -> torch.Tensor:
     out = torch.zeros((rows, k), dtype=packed.val.dtype, device=x.device)
     out.index_add_(0, row, terms)
     return out.reshape(J, packed.block_rows, k)
+
+
+def spmm_fused_packed_plain(
+    fwd_packed, tra_packed, xb: torch.Tensor, yb: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(A_j x (J, Rp*bp, k), A_jᵀ y_j (J, Rn*bn, k)): the products of the
+    forward packed form with x (J, C, bn, k) and of the transposed packed form
+    with y (J, Rp, bp, k)."""
+    return spmm_packed_plain(fwd_packed, xb), spmm_packed_plain(tra_packed, yb)
 
 
 def spmm_fused_plain(

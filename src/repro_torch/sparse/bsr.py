@@ -16,7 +16,9 @@ module keeps the matrix blocked-sparse on the device:
     ``use_kernels=True`` (``repro_torch.kernels.spmm``), gather + einsum +
     ``index_add_`` otherwise. ``with_packed`` adds the packed-nonzero form
     of every stored shard (a CSR of its nonzeros, derived, never saved),
-    which the kernel path's forward products stream instead of the tiles.
+    which the kernel path's products stream instead of the tiles: the
+    transposed shards' form is the CSC of A_j's nonzeros, so the epoch's
+    fused pass needs no staged contributions and no scatter.
 
 The layout is built on the host by numpy code copied from the JAX package's
 ``sparse/bsr.py``, so both packages give equal index and data arrays, bit
@@ -380,7 +382,8 @@ class PartitionedBSR:
     mandatory representation: ``rmatvec`` scatter-adds transposed tile
     products straight from it. ``with_transpose=True`` additionally stores
     the A_jᵀ shards (``tra_*``, (J, Rn, T) tiles of (bn, bp)), which the
-    kernel path's ``rmatvec`` streams through the SpMM kernel.
+    kernel path's ``rmatvec`` and ``fused_project`` stream through the SpMM
+    kernels.
     ``with_gram=True`` stores the Gram operators G_j = A_j A_jᵀ as (p, p)
     blocked-ELL shards (``gram_*``), the inner-CG operator.
 
@@ -652,20 +655,28 @@ class PartitionedBSR:
     def fused_project(
         self, x: torch.Tensor, y: torch.Tensor, use_kernels: bool = False
     ) -> tuple[torch.Tensor, torch.Tensor]:
-        """(A_j x, A_jᵀ y_j) from ONE pass over the forward ELL tiles.
+        """(A_j x, A_jᵀ y_j): the matrix-free epoch's two tile products.
 
         x (n, k) (broadcast to every block) or (J, n, k); y (J, p_pad, k).
-        Returns the forward product (J, p_pad, k) and the scatter-added
-        transposed product (J, n, k). Each tile is read once and feeds both
-        contractions; the per-slot transpose contributions are staged and
-        scatter-added here (``index_add_``).
+        Returns the forward product (J, p_pad, k) and the transposed product
+        (J, n, k). With kernels and both packed forms stored (the solver's
+        path on the card), one ``spmm_fused_packed`` launch computes both, the
+        transpose over the transposed shards' packed form with one writer per
+        output row. Otherwise one pass over the forward ELL tiles feeds both
+        contractions (the staged ``spmm_fused`` kernel under ``use_kernels``,
+        the plain version without): the per-slot transpose contributions are
+        staged and scatter-added here (``index_add_``).
         """
         J, n = self.num_blocks, self.shape[1]
         bp, bn = self.block_shape
+        xb = self._col_tiles(x)
         yb = self._to_internal(y).reshape(J, self.p_pad // bp, bp, -1)
-        fused = spmm_ops.spmm_fused if use_kernels else spmm_fused_plain
-        fwd, contrib = fused(self.fwd_indices, self.fwd_data, self._col_tiles(x), yb)
-        tra = _scatter_contrib(self.fwd_indices, contrib, _ceil_div(n, bn))
+        if use_kernels and self.fwd_packed is not None and self.tra_packed is not None:
+            fwd, tra = spmm_ops.spmm_fused_packed(self.fwd_packed, self.tra_packed, xb, yb)
+        else:
+            fused = spmm_ops.spmm_fused if use_kernels else spmm_fused_plain
+            fwd, contrib = fused(self.fwd_indices, self.fwd_data, xb, yb)
+            tra = _scatter_contrib(self.fwd_indices, contrib, _ceil_div(n, bn))
         return self._to_external(fwd), tra[:, :n]
 
     def gram_mv(self, y: torch.Tensor, use_kernels: bool = False) -> torch.Tensor:

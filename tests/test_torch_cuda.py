@@ -12,7 +12,12 @@ from repro_torch.kernels.project import ops as project_ops
 from repro_torch.kernels.project.ref import consensus_update_ref, project_ref
 from repro_torch.kernels.spmm import ops as spmm_ops
 from repro_torch.kernels.spmm.pack import pack
-from repro_torch.kernels.spmm.ref import spmm_fused_plain, spmm_packed_plain, spmm_plain
+from repro_torch.kernels.spmm.ref import (
+    spmm_fused_packed_plain,
+    spmm_fused_plain,
+    spmm_packed_plain,
+    spmm_plain,
+)
 from repro_torch.kernels.trisolve import ops as trisolve_ops
 from repro_torch.kernels.trisolve.ref import trisolve_ref
 from repro_torch.sparse import PartitionedBSR, generate_schenk_like
@@ -363,7 +368,8 @@ def test_spmm_broadcast_x_and_checks(cuda):
     before = dict(spmm_ops.launches)
     spmm_ops.spmm(idx, data, xb)
     spmm_ops.spmm_fused(idx, data, xb, y)
-    assert spmm_ops.launches == {"spmm": before["spmm"] + 1, "spmm_fused": before["spmm_fused"] + 1}
+    assert spmm_ops.launches == {"spmm": before["spmm"] + 1, "spmm_fused": before["spmm_fused"] + 1,
+                                 "spmm_fused_packed": before["spmm_fused_packed"]}
     spmm_ops.spmm(idx.cpu(), data.cpu(), xb.cpu())  # the CPU path launches nothing
     assert spmm_ops.launches["spmm"] == before["spmm"] + 1
     with pytest.raises(TypeError, match="int32"):
@@ -451,7 +457,11 @@ def test_matfree_kernels_match_plain_on_card(cuda, gram_solver):
                        use_kernels=kernels, gamma=2.0, eta=1.9, device=cuda)
         res[kernels] = prep.solve(B, num_epochs=40)
         launched = {key: spmm_ops.launches[key] - before[key] for key in before}
-        assert (launched["spmm"] > 0 and launched["spmm_fused"] == 40) == kernels, launched
+        if kernels:  # one fused packed pass per epoch; the staged ELL kernel is off the path
+            assert launched["spmm"] > 0 and launched["spmm_fused_packed"] == 40, launched
+            assert launched["spmm_fused"] == 0, launched
+        else:
+            assert not any(launched.values()), launched
         # the kernel path carries the packed forms, and a restore rebuilds them
         packs = (prep.op.fwd_packed, prep.op.tra_packed, prep.op.gram_packed)
         assert all((p is not None) == kernels for p in packs)
@@ -460,3 +470,92 @@ def test_matfree_kernels_match_plain_on_card(cuda, gram_solver):
     scale = float(np.abs(res[False].x).max())
     np.testing.assert_allclose(res[True].x, res[False].x, atol=2.5e-4 * scale)
     np.testing.assert_array_equal(res[True].history["inner_iters"].shape, (40, 6))
+
+
+# -- the fused packed pass of the matrix-free epoch ----------------------------
+
+
+def _fused_operands(bshape, k, dtype, cuda, n=200, J=3, seed=0):
+    """A balanced Schenk-like operator on the CPU and its packed forms on the
+    card, x (n, k) broadcast as the column tile view and y (J, Rp, bp, k)."""
+    op, _ = _shards(bshape, dtype, n=n, J=J, seed=seed)
+    fwd = pack(op.fwd_indices.to(cuda), op.fwd_data.to(cuda))
+    tra = pack(op.tra_indices.to(cuda), op.tra_data.to(cuda))
+    rng = np.random.default_rng(seed + k)
+    x = torch.as_tensor(rng.standard_normal((n, k)), dtype=dtype)
+    y = torch.as_tensor(rng.standard_normal((J, op.p_pad, k)), dtype=dtype)
+    yb = y.reshape(J, -1, bshape[0], k)
+    return op, fwd, tra, x, op._col_tiles(x), yb
+
+
+@pytest.mark.parametrize("bshape", [(8, 8), (16, 8)])
+@pytest.mark.parametrize("k", [1, 5, 32, 40])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_spmm_fused_packed_on_card(cuda, bshape, k, dtype):
+    """The fused packed kernel against its plain version on the forward and
+    transposed shards, bit-identical to the two spmm_packed launches; the
+    operator's fused_project launches it (and nothing staged)."""
+    op, fwd, tra, x, xb, yb = _fused_operands(bshape, k, dtype, cuda, seed=k)
+    wide = xb[:1].to(cuda).expand_as(xb)  # x broadcast over the blocks, as the solver passes it
+    got_f, got_t = spmm_ops.spmm_fused_packed(fwd, tra, wide, yb.to(cuda))
+    assert got_f.dtype == got_t.dtype == dtype
+    assert got_f.shape == (3, op.p_pad, k) and got_t.shape == (3, tra.block_rows, k)
+    cpu = op.with_packed()
+    want_f, want_t = spmm_fused_packed_plain(cpu.fwd_packed, cpu.tra_packed, xb, yb)
+    rtol = 1e-4 if dtype == torch.float32 else 1e-12
+    _spmm_close(got_f.cpu(), want_f, rtol)
+    _spmm_close(got_t.cpu(), want_t, rtol)
+    assert torch.count_nonzero(got_t[:, op.shape[1]:]) == 0  # the padded transpose rows
+    assert torch.equal(got_f, spmm_ops.spmm_packed(fwd, wide))
+    assert torch.equal(got_t, spmm_ops.spmm_packed(tra, yb.to(cuda)))
+    dev_op = PartitionedBSR.from_coo(generate_schenk_like(200, sparsity=0.95, seed=k), 3, bshape,
+                                     dtype=np.dtype(str(dtype).split(".")[1]),
+                                     with_transpose=True, balance=True, device=cuda).with_packed()
+    before = dict(spmm_ops.launches)
+    f, g = dev_op.fused_project(x.to(cuda), yb.reshape(3, -1, k).to(cuda), use_kernels=True)
+    assert spmm_ops.launches["spmm_fused_packed"] == before["spmm_fused_packed"] + 1
+    assert spmm_ops.launches["spmm_fused"] == before["spmm_fused"]
+    assert torch.equal(f, dev_op.matvec(x.to(cuda), use_kernels=True))
+    assert torch.equal(g, dev_op.rmatvec(yb.reshape(3, -1, k).to(cuda), use_kernels=True))
+
+
+@pytest.mark.parametrize("bshape", [(8, 8), (16, 8)])
+def test_spmm_fused_packed_repeatable_and_graph_replay(cuda, bshape):
+    """At the paper's n = 2327, J = 8, k = 32: 20 launches give the same bits,
+    and so does a replayed CUDA graph of the call (the kernel allocates
+    nothing and uses no atomics)."""
+    _, fwd, tra, _, xb, yb = _fused_operands(bshape, 32, torch.float32, cuda, n=2327, J=8)
+    xb, yb = xb[:1].to(cuda).expand_as(xb), yb.to(cuda)
+    first = spmm_ops.spmm_fused_packed(fwd, tra, xb, yb)
+    for _ in range(19):
+        again = spmm_ops.spmm_fused_packed(fwd, tra, xb, yb)
+        assert torch.equal(again[0], first[0]) and torch.equal(again[1], first[1])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        spmm_ops.spmm_fused_packed(fwd, tra, xb, yb)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = spmm_ops.spmm_fused_packed(fwd, tra, xb, yb)
+    for _ in range(2):
+        out[0].zero_()
+        out[1].zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], first[0]) and torch.equal(out[1], first[1])
+
+
+def test_spmm_fused_packed_checks_on_card(cuda):
+    op, fwd, tra, _, xb, yb = _fused_operands((8, 8), 4, torch.float32, cuda)
+    xb, yb = xb.to(cuda), yb.to(cuda)
+    with pytest.raises(ValueError, match="expected"):
+        spmm_ops.spmm_fused_packed(fwd, tra, xb, yb.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        spmm_ops.spmm_fused_packed(fwd, tra, xb, yb.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(TypeError):
+        spmm_ops.spmm_fused_packed(fwd, tra, xb, yb.double())
+    before = dict(spmm_ops.launches)
+    cpu = op.with_packed()
+    spmm_ops.spmm_fused_packed(cpu.fwd_packed, cpu.tra_packed, xb.cpu(), yb.cpu())  # no launch
+    assert spmm_ops.launches == before
