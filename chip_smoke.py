@@ -44,8 +44,29 @@
    pass). ``bound_ms`` counts the bytes the product needs (each nonzero's
    value and column, the row pointers, x, y and the outputs once),
    ``bound_ell_ms`` the stored ELL arrays;
-7. prints the kernel table as one JSON line, the card line again, and the
-   ``{"ok": true, "device": ...}`` line last.
+7. runs the dgd and cgnr baselines through ``repro_torch.launch.solve
+   --method dgd|cgnr`` at the Table 1 width (m=9308, n=2327, J=8, k=32, 80
+   epochs; plain batched matmuls, no hand kernel), checks each residual
+   against the JAX package's CPU value, prints dgd's step size beside the
+   JAX package's, and times and profiles a warm solve;
+8. replays a drifting stream (12 updates of 32 streams as columns, the
+   reference's b_t = A(x_base + 2e-3·sin(0.25 t + i))) through a ``Session``
+   over the kernels-on dense solver (the Table 1 wide system, implicit
+   projector) and over the kernels-on matrix-free solver (n=2327, direct
+   Gram solver), against independent cold solves at one tol (3x the cold
+   floor at the 300-epoch cap): every update below tol and within 5·tol of
+   its cold solve, the session's total epochs at most 0.7x the independent
+   total, the watchdog all ok; one warm update's launches counted (one
+   trisolve and 300 consensus updates dense; 300 fused packed passes, the
+   warm start's ``spmm_packed`` and no staged pass matrix-free); the same
+   stream on the kernels-off solver restored from each solver's state,
+   held at the solve gates; and one warm-started session solve profiled;
+9. plants a NaN in one column of b on both kernel paths, which the watchdog
+   must flag alone, and checks that a matrix-free ``block_history`` solve
+   returns x bit for bit, printing its per-block convergence report;
+10. prints the kernel table as one JSON line (with a row per kernel of one
+   warm session update, carrying the measured case of the same shapes), the
+   card line again, and the ``{"ok": true, "device": ...}`` line last.
 
 The kernel cases are timed twice: with CUDA events around
 back-to-back calls (``ms``, which includes the Python wrapper's host cost
@@ -78,7 +99,33 @@ JAX_CPU_RESIDUAL = {2: 9.247297384717967e-06, 8: 2080.2412109375}
 #   PYTHONPATH=src JAX_PLATFORMS=cpu python -m repro.launch.solve --n 2327 \
 #       --m 2327 --blocks 8 --mode matfree --rhs 32 --epochs 300 --gamma 2.0 --eta 1.9
 JAX_CPU_MATFREE_RESIDUAL = 7.070346832275391
+# ... and for the baselines at the Table 1 width:
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python -m repro.launch.solve --n 2327 \
+#       --m 9308 --blocks 8 --epochs 80 --rhs 32 --method {dgd,cgnr}
+JAX_CPU_BASELINE_RESIDUAL = {"dgd": 1777464.5, "cgnr": 205.1161346435547}
+# dgd's step size 1/λ_max from the JAX package's prepare of that system (its
+# power iteration starts at a jax.random vector, the port's at a torch one):
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python -c "import numpy as np, repro.core as c, \
+#       repro.sparse as s; print(c.prepare(s.make_problem(n=2327, m=9308, seed=0, \
+#       dtype=np.float32).A, method='dgd', num_blocks=8).factors[0])"
+JAX_CPU_DGD_LR = 1.2971216161973197e-05
 RESIDUAL_FACTOR = 10.0  # the card's residual must lie within 10x either way
+# the drifting streams of the session phases (``drift_stream``), replayed by
+# the JAX package on the CPU through ``replay_stream``, which imports nothing:
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python -c "import chip_smoke, repro.core, \
+#       repro.sparse; chip_smoke.print_stream_reference(repro.core.prepare, \
+#       repro.sparse.make_problem)"
+# session and independent totals of epochs-to-tol over the 12 updates, and tol
+JAX_CPU_STREAM = {
+    "dense": {"session": 2239, "independent": 22644, "tol": 52.462440490722656},
+    "matfree": {"session": 3572, "independent": 38640, "tol": 9.843310117721558},
+}
+STREAM_UPDATES, STREAM_COLS, STREAM_SEED, STREAM_AMP = 12, 32, 2, 2e-3
+# the epoch cap of every session solve: the JAX CPU replay reaches the
+# reference streaming benchmark's 0.5 ratio at it (0.0989 dense, 0.0924
+# matrix-free); the card is gated at the reference test's 0.7
+STREAM_CAP = 300
+SESSION_RATIO_GATE = 0.7
 # kernels-on vs kernels-off matrix-free solutions, as a share of max|x|: the
 # reference's own full-size gate between two float32 trajectories
 # (benchmarks/sparse.py)
@@ -377,15 +424,16 @@ def main_path_run(torch, launch_solve, ops, n, m, J, k, gate):
     return out
 
 
-def profile_solve(torch, prep, b, x_ref, epochs, label="one warm solve") -> dict:
+def profile_solve(torch, prep, b, x_ref, epochs, label="one warm solve", **solve_kw) -> dict:
     """Where one warm solve's time goes: device time by kernel and the
     device's busy share of the host wall time, from torch.profiler. Prints
-    the eight largest rows and every row of the epoch's fused pass."""
+    the eight largest rows and every row of the epoch's fused pass.
+    ``solve_kw`` go to the solve (a session's warm start and tol)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall = prep.solve(b, num_epochs=epochs, x_ref=x_ref).wall_seconds
+        wall = prep.solve(b, num_epochs=epochs, x_ref=x_ref, **solve_kw).wall_seconds
     rows = []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -665,6 +713,194 @@ def spmm_phase(torch, spmm_ops, spmm_plain, spmm_packed_plain, spmm_fused_plain,
     return results
 
 
+def baseline_run(torch, launch_solve, ops, method):
+    """``repro_torch.launch.solve --method dgd|cgnr`` at the Table 1 width:
+    no hand kernel runs (the reference's products are plain einsums, here
+    batched matmuls); the residual is held against the JAX package's."""
+    argv = ["--n", "2327", "--m", "9308", "--blocks", "8", "--epochs", "80", "--rhs", "32",
+            "--method", method, "--device", "cuda"]
+    reset_launches(ops)
+    record, prep, res, b, x_ref = launch_solve.run(argv)
+    launches = read_launches(ops)
+    resid, ref = record["final_residual_sq_max"], JAX_CPU_BASELINE_RESIDUAL[method]
+    print(f"  {method}: mode {record['mode']}, launches {launches}, setup {prep.setup_seconds:.4f} s, "
+          f"solve {res.wall_seconds:.4f} s, final_residual_sq_max {resid:.6e}, "
+          f"final_mse_max {record['final_mse_max']:.6e}")
+    if method == "dgd":
+        lr = prep.factors[0]
+        print(f"    step size 1/lambda_max {lr:.10e} vs JAX CPU {JAX_CPU_DGD_LR:.10e} "
+              f"(ratio {lr / JAX_CPU_DGD_LR:.4f})")
+    check(res.x.shape == (2327, 32) and bool(np.isfinite(res.x).all()),
+          f"{method}: solution shape {res.x.shape} or non-finite values")
+    check(res.gamma is None and res.eta is None, f"{method}: gamma/eta set on a baseline")
+    warm = prep.solve(b, num_epochs=80, x_ref=x_ref).wall_seconds
+    print(f"    warm solve (same prepared solver, second call): {warm:.4f} s")
+    print(f"    residual {resid:.6e} vs JAX CPU {ref:.6e} (ratio {resid / ref:.4f}, "
+          f"allowed 1/{RESIDUAL_FACTOR:g}..{RESIDUAL_FACTOR:g})")
+    check(ref / RESIDUAL_FACTOR <= resid <= ref * RESIDUAL_FACTOR,
+          f"{method}: residual {resid} not within {RESIDUAL_FACTOR}x of {ref}")
+    profile = profile_solve(torch, prep, b, x_ref, 80)
+    return {"record": record, "warm_solve_seconds": warm, "profile": profile}
+
+
+def stream_problem(make_problem, path):
+    """(matrix to prepare, its dense form, prepare kwargs) of a session
+    phase: the Table 1 wide system, or the paper-size square sparse one."""
+    if path == "dense":
+        prob = make_problem(n=2327, m=9308, seed=0, dtype=np.float32)
+        return prob.A, prob.A, {"num_blocks": 8, "materialize_p": False}
+    prob = make_problem(n=2327, m=2327, seed=0, dtype=np.float32)
+    return (prob.coo, prob.coo.to_dense().astype(np.float32),
+            {"mode": "matfree", "num_blocks": 8, "gamma": 2.0, "eta": 1.9})
+
+
+def drift_stream(A):
+    """The reference's streaming trace (benchmarks/streaming.py), 32 streams
+    as columns: b_t = A(x_base + 2e-3·sin(0.25 t + i)), t < 12."""
+    n = A.shape[1]
+    x_base = np.random.default_rng(STREAM_SEED).standard_normal((n, STREAM_COLS)).astype(np.float32)
+    phase = np.arange(n)[:, None]
+    return [(A @ (x_base + STREAM_AMP * np.sin(0.25 * t + phase))).astype(np.float32)
+            for t in range(STREAM_UPDATES)]
+
+
+def stream_tol(prep, b0):
+    """3x the cold solve's residual floor at the cap, the largest column's."""
+    cold = prep.solve(b0, num_epochs=STREAM_CAP)
+    return 3.0 * float(np.sqrt(np.max(cold.history["residual_sq"][-1])))
+
+
+def replay_stream(prep, bs, tol, on_update=None):
+    """The stream through a session and as independent cold solves at one
+    tol. ``on_update(t, update)`` wraps each session update (the launch
+    count). Returns the totals of epochs-to-tol and both results per update."""
+    sess = prep.open_session(num_epochs=STREAM_CAP, tol=tol)
+    independent, pairs = 0, []
+    for t, b in enumerate(bs):
+        res = on_update(t, lambda: sess.update(b)) if on_update else sess.update(b)
+        cold = prep.solve(b, num_epochs=STREAM_CAP, tol=tol)
+        independent += int(cold.iterations_to_tol(tol).sum())
+        pairs.append((res, cold))
+    return {"session": sess.total_epochs, "independent": independent, "tol": tol, "pairs": pairs}
+
+
+def print_stream_reference(prepare, make_problem):
+    """The session phases' streams replayed by a package's ``prepare`` and
+    ``make_problem`` on the CPU (the JAX package's, for ``JAX_CPU_STREAM``)."""
+    for path in ("dense", "matfree"):
+        A, dense, kw = stream_problem(make_problem, path)
+        prep = prepare(A, **kw)
+        bs = drift_stream(dense)
+        out = replay_stream(prep, bs, stream_tol(prep, bs[0]))
+        print(json.dumps({"path": path, "session": out["session"],
+                          "independent": out["independent"], "tol": out["tol"],
+                          "ratio": out["session"] / out["independent"]}))
+
+
+def session_phase(torch, ops, path, make_problem, prepare):
+    """A drifting stream through a session over the kernels-on solver on the
+    card: every update and every independent solve below tol, each update
+    within 5·tol of its cold solve, the epoch ratio under the gate; the
+    launches of one update counted; the watchdog all ok; then the same
+    stream on the kernels-off solver restored from this one's state."""
+    A, dense, kw = stream_problem(make_problem, path)
+    prep = prepare(A, use_kernels=True, device="cuda", **kw)
+    bs = drift_stream(dense)
+    tol = stream_tol(prep, bs[0])
+    counted = {}
+
+    def on_update(t, update):
+        if t != STREAM_UPDATES // 2:
+            return update()
+        reset_launches(ops)  # around one warm update
+        res = update()
+        counted.update(read_launches(ops))
+        return res
+
+    out = replay_stream(prep, bs, tol, on_update)
+    ref = JAX_CPU_STREAM[path]
+    ratio, ref_ratio = out["session"] / out["independent"], ref["session"] / ref["independent"]
+    walls = [(r.wall_seconds, c.wall_seconds) for r, c in out["pairs"]]
+    print(f"  {path} session: tol {tol:.6e} (JAX CPU {ref['tol']:.6e}); epochs session "
+          f"{out['session']} / independent {out['independent']} = {ratio:.4f} (JAX CPU "
+          f"{ref['session']} / {ref['independent']} = {ref_ratio:.4f}; gate {SESSION_RATIO_GATE})")
+    print(f"    per update: session wall mean {np.mean([w[0] for w in walls]):.4f} s, independent "
+          f"solve wall mean {np.mean([w[1] for w in walls]):.4f} s (cap {STREAM_CAP} epochs each)")
+    print(f"    launches in update {STREAM_UPDATES // 2}: {counted}")
+    for t, (res, cold) in enumerate(out["pairs"]):
+        for name, r in (("session", res), ("independent", cold)):
+            top = float(np.sqrt(np.max(r.final_residual)))
+            check(top <= tol, f"{path} update {t}: {name} residual {top} above tol {tol}")
+        diff = float(np.abs(res.x - cold.x).max())
+        check(diff <= 5 * tol, f"{path} update {t}: session differs from cold by {diff} > 5·tol")
+        health = res.assess_health(tol)
+        check(health.ok, f"{path} update {t}: watchdog {health.status}")
+    check(ratio <= SESSION_RATIO_GATE, f"{path}: session/independent epochs {ratio} above gate")
+    if path == "dense":
+        check(counted["trisolve"] == 1 and counted["consensus_update"] == STREAM_CAP,
+              f"dense update: expected 1 trisolve and {STREAM_CAP} consensus updates: {counted}")
+    else:
+        check(counted["spmm_fused_packed"] == STREAM_CAP and counted["spmm_fused"] == 0
+              and counted["spmm"] >= 1,
+              f"matfree update: expected {STREAM_CAP} fused packed passes, spmm_packed for the "
+              f"warm-start projection and no staged pass: {counted}")
+    # kernels on against kernels off, on the same card, the same stream
+    arrays, meta = prep.to_state()
+    meta = {**meta, "use_kernels": False}
+    if meta.get("projector") is not None:
+        meta["projector"] = {**meta["projector"], "kind": "implicit"}
+    off = type(prep).from_state(arrays, meta, device=prep.device).open_session(
+        num_epochs=STREAM_CAP, tol=tol)
+    worst, its = 0.0, []
+    for t, ((on_res, _), b) in enumerate(zip(out["pairs"], bs)):
+        off_res = off.update(b)
+        top = float(np.abs(off_res.x).max())
+        gate = 1e-4 * max(1.0, top) if path == "dense" else MATFREE_AGREEMENT * top
+        diff = float(np.abs(on_res.x - off_res.x).max())
+        worst = max(worst, diff / gate)
+        its.append((int(on_res.iterations_to_tol(tol).sum()), int(off_res.iterations_to_tol(tol).sum())))
+        check(diff <= gate, f"{path} update {t}: kernels on/off differ by {diff} > {gate}")
+    print(f"    kernels off (restored from this solver's state): session epochs {off.total_epochs}; "
+          f"largest |x_on - x_off| / gate {worst:.3f}; iterations_to_tol per update (on, off) {its}")
+    x0 = out["pairs"][-2][0].x  # the session's warm start for the last update
+    profile = profile_solve(torch, prep, bs[-1], None, STREAM_CAP,
+                            label="one warm-started session solve", x0=x0, tol=tol)
+    return {"prep": prep, "b0": bs[0], "launches": counted, "ratio": ratio, "tol": tol,
+            "profile": profile,
+            "session_epochs": out["session"], "independent_epochs": out["independent"],
+            "session_wall_mean": float(np.mean([w[0] for w in walls])),
+            "independent_wall_mean": float(np.mean([w[1] for w in walls]))}
+
+
+def watchdog_phase(sessions):
+    """NaN in one column of b: exactly that column is flagged, on the dense
+    and on the matrix-free direct kernel paths (solved as a session's
+    independent solve, at its cap and tol); and a block_history solve of the
+    matrix-free path returns x bit for bit, with its report printed."""
+    from repro_torch.obs import convergence_report
+
+    for name, run in sessions.items():
+        prep, b, tol = run["prep"], run["b0"], run["tol"]
+        bad = b.copy()
+        bad[5, 7] = np.nan
+        health = prep.solve(bad, num_epochs=STREAM_CAP, tol=tol).assess_health(tol)
+        want = tuple("nan" if i == 7 else "ok" for i in range(b.shape[1]))
+        print(f"  {name}: NaN planted in column 7 of b -> nan columns {health.nan_columns}, "
+              f"sick columns {health.sick_columns}")
+        check(health.status == want, f"{name}: watchdog verdict {health.status}")
+    matfree_prep, matfree_b = sessions["matfree"]["prep"], sessions["matfree"]["b0"]
+    check(matfree_prep.gram_solver == "direct", "matfree watchdog run: expected the direct solver")
+    plain = matfree_prep.solve(matfree_b, num_epochs=STREAM_CAP)
+    diag = matfree_prep.solve(matfree_b, num_epochs=STREAM_CAP, block_history=True)
+    same = bool(np.array_equal(plain.x, diag.x))
+    rep = convergence_report(diag)
+    print(f"  matfree block_history: x bit-identical {same}; slowest block per column "
+          f"{np.bincount(rep['slowest_block'], minlength=8).tolist()} (counts over 32 columns), "
+          f"imbalance min {rep['imbalance'].min():.3f} max {rep['imbalance'].max():.3f}, "
+          f"rates min {rep['rates'].min():.5f} max {rep['rates'].max():.5f}")
+    check(same, "matfree: block_history changed the solution")
+
+
 def main() -> int:
     import torch
 
@@ -687,7 +923,9 @@ def main() -> int:
     )
     from repro_torch.kernels.trisolve import ops as trisolve_ops
     from repro_torch.kernels.trisolve.ref import trisolve_ref
+    from repro_torch.core import prepare
     from repro_torch.launch import solve as launch_solve
+    from repro_torch.sparse import make_problem
 
     ops = SimpleNamespace(trisolve=trisolve_ops, project=project_ops, spmm=spmm_ops)
     t_start = time.perf_counter()
@@ -735,6 +973,22 @@ def main() -> int:
     cases.update(spmm_phase(torch, spmm_ops, spmm_plain, spmm_packed_plain, spmm_fused_plain,
                             spmm_fused_packed_plain, mf_small["prep"].op, mf_big["prep"].op))
 
+    print("baselines at the Table 1 width (repro_torch.launch.solve --method dgd|cgnr --device cuda):")
+    t0 = time.perf_counter()
+    for method in ("dgd", "cgnr"):
+        baseline_run(torch, launch_solve, ops, method)
+    print(f"  baseline phase: {time.perf_counter() - t0:.1f} s")
+    print(f"sessions: {STREAM_UPDATES} updates of {STREAM_COLS} drifting streams through the "
+          f"kernels-on solvers, cap {STREAM_CAP} epochs:")
+    t0 = time.perf_counter()
+    sessions = {path: session_phase(torch, ops, path, make_problem, prepare)
+                for path in ("dense", "matfree")}
+    print(f"  session phases: {time.perf_counter() - t0:.1f} s")
+    print("watchdog and per-block diagnostics on the card:")
+    t0 = time.perf_counter()
+    watchdog_phase(sessions)
+    print(f"  watchdog phase: {time.perf_counter() - t0:.1f} s")
+
     def entry(name, source, replaces, launches, case, extra=(), **notes):
         out = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                "launches": launches, **cases[case], **notes}
@@ -744,6 +998,7 @@ def main() -> int:
 
     staged = {"main_path": False,
               "note": "the staged interface counterpart; the main path runs spmm_fused_packed"}
+    on_session = {"path": f"one warm update of the session phase (update {STREAM_UPDATES // 2})"}
 
     kernels = [
         entry("trisolve.upper", TRISOLVE_SRC, TRISOLVE_TPU,
@@ -770,6 +1025,18 @@ def main() -> int:
               **staged),
         entry("spmm_fused.matfree_16384", SPMM_SRC, SPMM_FUSED_TPU,
               mf_big["launches"]["spmm_fused"], "spmm_fused.n16384", **staged),
+        # one warm session update; the operands have the shapes of the rows
+        # whose measured case each row carries
+        entry("trisolve.session_dense", TRISOLVE_SRC, TRISOLVE_TPU,
+              sessions["dense"]["launches"]["trisolve"], "trisolve.lower_t", **on_session),
+        entry("consensus_update.session_dense", PROJECT_SRC, PROJECT_TPU,
+              sessions["dense"]["launches"]["consensus_update"], "consensus_update.wide",
+              **on_session),
+        entry("spmm.session_matfree", SPMM_SRC, SPMM_TPU, sessions["matfree"]["launches"]["spmm"],
+              "spmm.fwd.n2327", **on_session),
+        entry("spmm_fused_packed.session_matfree", SPMM_SRC, SPMM_FUSED_TPU,
+              sessions["matfree"]["launches"]["spmm_fused_packed"], "spmm_fused_packed.n2327",
+              **on_session),
     ]
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

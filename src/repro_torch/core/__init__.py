@@ -1,6 +1,7 @@
 """The paper's primary contribution, ported to PyTorch: (Decomposed)
 Accelerated Projection-Based Consensus solvers on the dense and the
-matrix-free paths."""
+matrix-free paths, the DGD and CGNR baselines, streaming sessions and the
+solve watchdog."""
 from repro_torch.core.partition import (
     Partition,
     PartitionPlan,
@@ -24,6 +25,7 @@ from repro_torch.core.solver_api import (
     resolve_path,
     solve,
 )
+from repro_torch.core.session import DriftPredictor, Session
 from repro_torch.core.matfree import MatrixFreePreparedSolver, prepare_matfree
 from repro_torch.core.apc import solve_apc, setup_classical, classical_factors
 from repro_torch.core.dapc import (
@@ -33,6 +35,9 @@ from repro_torch.core.dapc import (
     qr_blocks,
     initial_from_factors,
 )
+from repro_torch.core.dgd import solve_dgd
+from repro_torch.core.cg import solve_cgnr
+from repro_torch.core.guard import SolveHealth, Watchdog
 from repro_torch.core.consensus import (
     block_residual_sq,
     evaluate_candidates,
@@ -55,6 +60,8 @@ __all__ = [
     "SolveOptions",
     "ColumnResult",
     "PrepareConfig",
+    "Session",
+    "DriftPredictor",
     "PreparedSolver",
     "MatrixFreePreparedSolver",
     "prepare",
@@ -69,6 +76,10 @@ __all__ = [
     "make_apply",
     "qr_blocks",
     "initial_from_factors",
+    "solve_dgd",
+    "solve_cgnr",
+    "SolveHealth",
+    "Watchdog",
     "run_consensus",
     "tune_hyperparams",
     "block_residual_sq",

@@ -62,7 +62,6 @@ GRAM_SOLVERS = ("auto", "direct", "pcg")
 # auto goes direct while the stacked (J, p_pad, p_pad) Gram inverses fit
 DIRECT_GRAM_BYTES = 64 * 1024 * 1024
 
-_SESSION_TODO = "ROADMAP Queue 1 item 6 (streams, health and diagnostics)"
 _MESH_TODO = "ROADMAP Queue 1 item 8 (multi-device)"
 
 # device-to-host reads made by the PCG stopping test in this process
@@ -544,9 +543,12 @@ class MatrixFreePreparedSolver:
         )
 
     def open_session(self, **kwargs):
-        raise NotImplementedError(
-            f"streaming sessions (core/session.py) are not ported yet: {_SESSION_TODO}"
-        )
+        """A streaming prediction-correction ``Session`` over this solver
+        (``repro_torch.core.session``): each update warm-starts the
+        matrix-free consensus at the stream's predicted solution."""
+        from repro_torch.core.session import Session
+
+        return Session(self, **kwargs)
 
     # -- checkpoint serialization -------------------------------------------
 

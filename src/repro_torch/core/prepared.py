@@ -10,10 +10,11 @@ O(n²) substitution plus the consensus iteration.
 form iterates all k systems at once — the projector application becomes
 (J, p, n) × (J, n, k) products.
 
-The port covers the consensus methods (apc, dapc) on the dense path and on
-the matrix-free path (``repro_torch.core.matfree``, picked by ``mode``).
-Everything else the reference reaches raises ``NotImplementedError`` naming
-the ROADMAP item that ports it.
+The port covers every method of the reference: the consensus methods (apc,
+dapc) on the dense path and on the matrix-free path
+(``repro_torch.core.matfree``, picked by ``mode``), and the dgd/cgnr
+baselines on the dense path. Multi-device placement (``mesh=``) raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -24,10 +25,11 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.core import apc, consensus, dapc, projections
+from repro_torch.core import apc, cg, consensus, dapc, dgd, projections
 from repro_torch.core import spectra as spectra_mod
 from repro_torch.core.partition import (
     BlockMode,
+    Partition,
     PartitionPlan,
     block_rhs,
     partition_matrix,
@@ -44,9 +46,7 @@ METHODS = ("apc", "dapc", "dgd", "cgnr")
 MATFREE_AUTO_DENSITY = 0.01  # auto never goes matfree below 99% sparsity
 MATFREE_AUTO_BYTES = 64 * 1024 * 1024  # ... or when dense blocks fit easily
 
-_BASELINES_TODO = "ROADMAP Queue 1 item 5 (baselines core/cg.py and core/dgd.py)"
 _MESH_TODO = "ROADMAP Queue 1 item 8 (multi-device)"
-_SESSION_TODO = "ROADMAP Queue 1 item 6 (streams, health and diagnostics)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -257,9 +257,14 @@ class SolveResult:
         ]
 
     def assess_health(self, tol: float | None = None, watchdog=None):
-        raise NotImplementedError(
-            f"assess_health needs core/guard.py, not ported yet: {_SESSION_TODO}"
-        )
+        """Per-column NaN/stall verdict (``repro_torch.core.guard``).
+
+        Host-side only: reads the residual history this result already
+        carries, so guarded and unguarded solves are bit-identical.
+        """
+        from repro_torch.core.guard import assess
+
+        return assess(self, tol=tol, watchdog=watchdog)
 
 
 def _to_numpy(tree):
@@ -409,10 +414,12 @@ class PreparedSolver:
         """Solve A x = b against the cached factors (Algorithm 1 steps 5–8
         plus the per-b substitution); never re-partitions or re-factorizes.
 
-        ``x0`` warm-starts the whole consensus state at a predicted solution
-        (``(n,)`` / ``(n, k)``, or the masked pair ``(x0, mask)``). kwargs are
-        forwarded to ``run_consensus`` (``avg_every``/``compress``/``xbar0``/
-        ``tol``/``block_history``). ``dynamics`` overrides the prepared
+        ``x0`` (consensus methods only) warm-starts the whole consensus
+        state at a predicted solution (``(n,)`` / ``(n, k)``, or the masked
+        pair ``(x0, mask)``). kwargs are forwarded to the method:
+        ``avg_every``/``compress``/``xbar0``/``tol``/``block_history`` to
+        ``run_consensus``, ``tol`` to cgnr (which does not read it, as in
+        the reference), ``lr`` to dgd. ``dynamics`` overrides the prepared
         default per solve. ``num_epochs`` may be a ``SolveOptions``.
 
         The right-hand side moves to the device once per solve. The result's
@@ -429,22 +436,35 @@ class PreparedSolver:
         dev, dt = self.device, self.blocks.dtype
         bvecs = block_rhs(self.mixer, b, dt, dev)
         ref = None if x_ref is None else self._operand(x_ref)
-        xbar0 = kwargs.pop("xbar0", None)
-        if xbar0 is not None:
-            xbar0 = self._operand(xbar0)
-        warm = None
-        if x0 is not None:
+        consensus_method = self.method in ("apc", "dapc")
+        if x0 is not None and not consensus_method:
+            raise ValueError(
+                f"x0 warm start needs a consensus method (apc/dapc); "
+                f"this solver runs {self.method!r}"
+            )
+
+        t0 = time.perf_counter()
+        if consensus_method:
+            xbar0 = kwargs.pop("xbar0", None)
+            if xbar0 is not None:
+                xbar0 = self._operand(xbar0)
+            warm = None
             if isinstance(x0, tuple):
                 arr, mask = x0
                 warm = (self._operand(arr), torch.as_tensor(np.asarray(mask, bool), device=dev))
-            else:
+            elif x0 is not None:
                 warm = self._operand(x0)
-
-        t0 = time.perf_counter()
-        gamma_op, eta_op = self._dynamics_operands(gamma, eta, per_block)
-        x, hist = self._solve_phase(
-            bvecs, gamma_op, eta_op, num_epochs, ref, xbar0, warm, kwargs
-        )
+            gamma_op, eta_op = self._dynamics_operands(gamma, eta, per_block)
+            x, hist = self._solve_phase(
+                bvecs, gamma_op, eta_op, num_epochs, ref, xbar0, warm, kwargs
+            )
+        elif self.method == "cgnr":
+            part = Partition(self.blocks, bvecs, self.mode)
+            x, hist = cg.solve_cgnr(part, num_epochs=num_epochs, x_ref=ref, **kwargs)
+        else:  # dgd
+            part = Partition(self.blocks, bvecs, self.mode)
+            kwargs.setdefault("lr", self.factors[0])
+            x, hist = dgd.solve_dgd(part, num_epochs=num_epochs, x_ref=ref, **kwargs)
         synchronize(dev)
         wall = time.perf_counter() - t0
         self.num_solves += 1
@@ -457,15 +477,19 @@ class PreparedSolver:
             num_epochs=num_epochs,
             history=_to_numpy(hist),
             wall_seconds=wall,
-            gamma=gamma,
-            eta=eta,
+            gamma=gamma if consensus_method else None,
+            eta=eta if consensus_method else None,
             num_rhs=b.shape[1] if batched else 1,
         )
 
     def open_session(self, **kwargs):
-        raise NotImplementedError(
-            f"streaming sessions (core/session.py) are not ported yet: {_SESSION_TODO}"
-        )
+        """Open a streaming prediction-correction ``Session`` over this
+        solver: each ``session.update(b_t)`` predicts the drifted solution
+        from the stream history and corrects with a warm-started consensus
+        solve (``repro_torch.core.session``). Consensus methods only."""
+        from repro_torch.core.session import Session
+
+        return Session(self, **kwargs)
 
     # -- checkpoint serialization -------------------------------------------
 
@@ -478,8 +502,11 @@ class PreparedSolver:
         arrays: dict = {"blocks": self.blocks.detach().cpu().numpy()}
         factors_meta: list[dict] = []
         for i, f in enumerate(self.factors):
-            arrays[f"factor_{i}"] = f.detach().cpu().numpy()
-            factors_meta.append({"kind": "array", "key": f"factor_{i}"})
+            if isinstance(f, torch.Tensor):
+                arrays[f"factor_{i}"] = f.detach().cpu().numpy()
+                factors_meta.append({"kind": "array", "key": f"factor_{i}"})
+            else:  # dgd's step size
+                factors_meta.append({"kind": "scalar", "value": float(f)})
         projector_meta = None
         if self.projector:
             kind, operand = self.projector
@@ -531,11 +558,6 @@ class PreparedSolver:
                 "restore it with MatrixFreePreparedSolver.from_state "
                 "(repro_torch.core.matfree)"
             )
-        if meta["method"] not in ("apc", "dapc"):
-            raise NotImplementedError(
-                f"method {meta['method']!r} is not ported yet: {_BASELINES_TODO}"
-            )
-
         def tensor(key):  # a read-only or strided array is copied first
             return torch.from_numpy(np.require(arrays[key], requirements="CW")).to(dev)
 
@@ -622,8 +644,10 @@ def prepare(
 
     Cached per method (dense path):
       * dapc — (W_j, R_j) reduced-QR factors (paper eqs. 1/4);
-      * apc  — (A_j⁺, P_j) pseudoinverse + dense projector.
-    dgd/cgnr and ``mesh=`` raise NotImplementedError.
+      * apc  — (A_j⁺, P_j) pseudoinverse + dense projector;
+      * dgd  — the 1/λ_max(AᵀA) step size (power iteration), a float;
+      * cgnr — nothing beyond the partition (zero-setup baseline).
+    ``mesh=`` raises NotImplementedError.
     """
     if isinstance(method, PrepareConfig):
         return prepare(A, **method.kwargs())
@@ -638,10 +662,6 @@ def prepare(
                 "those, or mode='dense'/'auto' for this method"
             )
         path = "dense"  # auto must not turn a dgd/cgnr solve into an error
-    if method not in ("apc", "dapc"):
-        raise NotImplementedError(
-            f"method={method!r} is not ported yet: {_BASELINES_TODO}"
-        )
     if partition not in ("uniform", "cost_aware"):
         raise ValueError(
             f"partition must be 'uniform' or 'cost_aware', got {partition!r}"
@@ -677,20 +697,24 @@ def prepare(
         A, num_blocks, block_mode, dtype, plan=plan, device=dev
     )
 
+    factors: tuple = ()
+    projector: tuple = ()
     if method == "dapc":
         Ws, Rs = dapc.qr_blocks(blocks, resolved)
-        factors: tuple = (Ws, Rs)
+        factors = (Ws, Rs)
         if materialize_p:
             # paper-faithful dense P_j, built ONCE here (not per solve)
-            projector: tuple = ("dense", projections.materialize(Ws))
+            projector = ("dense", projections.materialize(Ws))
         elif use_kernels:
             projector = ("kernels", Ws)
         else:
             projector = ("implicit", Ws)
-    else:
+    elif method == "apc":
         pinvs, Ps = apc.classical_factors(blocks, resolved)
         factors = (pinvs, Ps)
         projector = ("dense", Ps)
+    elif method == "dgd":
+        factors = (float(dgd.estimate_lipschitz(blocks)) ** -1,)
     block_gamma_w = block_eta_w = spectra_d = None
     if dynamics == "per_block":
         spectra_d = spectra_mod.block_spectra_dense(

@@ -59,7 +59,7 @@ def solve(
     kwargs are forwarded to prepare when they name one of its fields
     (``materialize_p=False`` / ``use_kernels=True`` / ``gram_solver=`` /
     ``inner_iters=`` ...) and to the solve otherwise (``tol=``,
-    ``block_history=`` ...).
+    ``block_history=``, ``lr=`` for dgd ...).
     """
     prep_kw = {k: kwargs.pop(k) for k in _PREPARE_KWARGS if k in kwargs}
     prep = prepare(

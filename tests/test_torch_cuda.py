@@ -559,3 +559,92 @@ def test_spmm_fused_packed_checks_on_card(cuda):
     cpu = op.with_packed()
     spmm_ops.spmm_fused_packed(cpu.fwd_packed, cpu.tra_packed, xb.cpu(), yb.cpu())  # no launch
     assert spmm_ops.launches == before
+
+
+# -- sessions, the watchdog and the baselines on the card ---------------------
+
+
+def _drift_stream(A, num_updates, k=4, seed=0):
+    """b_t = A(x_base + 2e-3·sin(0.25 t + i)), k streams as columns."""
+    n = A.shape[1]
+    x_base = np.random.default_rng(seed).standard_normal((n, k)).astype(np.float32)
+    phase = np.arange(n)[:, None]
+    return [(A @ (x_base + 2e-3 * np.sin(0.25 * t + phase))).astype(np.float32)
+            for t in range(num_updates)]
+
+
+def _session_on_and_off(prep, A, cap, dense):
+    """One stream through a kernels-on session and through a kernels-off
+    session on the solver restored from its state: per-update solutions
+    agree at the kernels' solve gates (1e-4·max(1, max|x|) dense,
+    2.5e-4·max|x| matrix-free), every update meets tol, and the warm
+    updates take fewer epochs than the cold first one."""
+    bs = _drift_stream(A, 5)
+    cold = prep.solve(bs[0], num_epochs=cap)
+    tol = 3.0 * float(np.sqrt(np.max(cold.history["residual_sq"][-1])))
+    arrays, meta = prep.to_state()
+    meta = {**meta, "use_kernels": False}
+    if meta.get("projector") is not None:
+        meta["projector"] = {**meta["projector"], "kind": "implicit"}
+    plain = type(prep).from_state(arrays, meta, device=prep.device)
+    on = prep.open_session(num_epochs=cap, tol=tol)
+    off = plain.open_session(num_epochs=cap, tol=tol)
+    counts = []
+    for b in bs:
+        got, want = on.update(b), off.update(b)
+        top = float(np.abs(want.x).max())
+        atol = 1e-4 * max(1.0, top) if dense else 2.5e-4 * top
+        np.testing.assert_allclose(got.x, want.x, atol=atol)
+        assert float(np.sqrt(np.max(got.final_residual))) <= tol
+        assert got.assess_health(tol).ok
+        counts.append(int(got.iterations_to_tol(tol).sum()))
+    assert max(counts[1:]) < counts[0], counts
+    return counts
+
+
+def test_dense_session_kernels_match_plain_on_card(cuda):
+    from repro_torch.core import prepare
+    from repro_torch.sparse import make_problem
+
+    prob = make_problem(n=256, m=1024, seed=3, dtype=np.float32)
+    prep = prepare(prob.A, num_blocks=8, materialize_p=False, use_kernels=True, device=cuda)
+    assert prep.projector[0] == "kernels"
+    before = (trisolve_ops.launches, project_ops.launches)
+    _session_on_and_off(prep, prob.A, 200, dense=True)
+    assert trisolve_ops.launches > before[0] and project_ops.launches > before[1]
+
+
+def test_matfree_session_kernels_match_plain_on_card(cuda):
+    from repro_torch.core import prepare
+    from repro_torch.sparse import make_problem
+
+    prob = make_problem(n=256, m=256, sparsity=0.98, seed=2, dtype=np.float32)
+    prep = prepare(prob.coo, mode="matfree", num_blocks=8, use_kernels=True, gamma=2.0,
+                   eta=1.9, device=cuda)
+    before = dict(spmm_ops.launches)
+    _session_on_and_off(prep, prob.A, 200, dense=False)
+    assert spmm_ops.launches["spmm_fused_packed"] - before["spmm_fused_packed"] == 6 * 200
+    assert spmm_ops.launches["spmm_fused"] == before["spmm_fused"]
+
+
+@pytest.mark.parametrize("method", ["dgd", "cgnr"])
+def test_baselines_on_card_match_cpu(cuda, method):
+    """One carried state on the card and on the CPU: the same step size,
+    and solutions within 1e-4·max(1, max|x|) (cgnr over its early epochs)."""
+    from repro_torch.core import PreparedSolver, prepare
+    from repro_torch.sparse import make_problem
+
+    prob = make_problem(n=256, m=1024, seed=3, dtype=np.float32)
+    B = prob.A @ np.random.default_rng(1).standard_normal((256, 8)).astype(np.float32)
+    card = prepare(prob.A, method=method, num_blocks=8, device=cuda)
+    cpu = PreparedSolver.from_state(*card.to_state(), device="cpu")
+    assert card.factors == cpu.factors
+    if method == "dgd":  # one start vector from the host generator on both devices
+        own = prepare(prob.A, method="dgd", num_blocks=8, device="cpu").factors[0]
+        assert card.factors[0] == pytest.approx(own, rel=1e-5)
+    epochs = 80 if method == "dgd" else 10
+    got, want = card.solve(B, num_epochs=epochs), cpu.solve(B, num_epochs=epochs)
+    np.testing.assert_allclose(got.x, want.x, atol=1e-4 * max(1.0, float(np.abs(want.x).max())))
+    np.testing.assert_allclose(got.history["residual_sq"][:5], want.history["residual_sq"][:5],
+                               rtol=1e-4)
+    assert got.gamma is None and got.assess_health().ok

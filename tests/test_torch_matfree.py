@@ -213,10 +213,10 @@ def test_routing():
     assert isinstance(prepare(coo, mode="auto", num_blocks=8, device="cpu"), PreparedSolver)
     assert prep.memory_bytes * 5 < prepare(coo, mode="dense", num_blocks=8, device="cpu").memory_bytes
     for method in ("dgd", "cgnr"):
-        # auto keeps dgd/cgnr on the dense path, which is not ported yet
-        with pytest.raises(NotImplementedError, match="baselines"):
-            prepare(coo, method=method, mode="auto", num_blocks=8, matfree_threshold_bytes=0,
-                    device="cpu")
+        # auto keeps dgd/cgnr on the dense path
+        dense = prepare(coo, method=method, mode="auto", num_blocks=8, matfree_threshold_bytes=0,
+                        device="cpu")
+        assert isinstance(dense, PreparedSolver) and dense.method == method
         with pytest.raises(ValueError, match="consensus"):
             prepare(coo, method=method, mode="matfree", num_blocks=8, device="cpu")
         with pytest.raises(ValueError, match="consensus"):
@@ -282,8 +282,5 @@ def test_float64_and_host_syncs(problem):
 
 def test_stubs_of_later_slices(problem):
     prob, coo, _, _ = problem
-    port = prepare(coo, mode="matfree", num_blocks=J, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        port.open_session()
     with pytest.raises(NotImplementedError, match="item 8"):
         prepare_matfree(coo, mesh=object(), device="cpu")

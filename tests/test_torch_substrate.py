@@ -172,30 +172,24 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_not_implemented_stubs():
+    from repro_torch import obs
     from repro_torch.core import prepare
 
     prob = tio.make_problem(n=16, m=64, seed=0, dtype=np.float32)
     big = tio.make_problem(n=256, m=256, seed=0, dtype=np.float32)
-    # the matrix-free path runs now (tests/test_torch_matfree.py); its
-    # sessions and its mesh placement belong to later slices
-    matfree = prepare(big.coo, num_blocks=4, matfree_threshold_bytes=1, device="cpu")
+    # every solve method, sessions, the watchdog and the per-block
+    # diagnostics run now (tests/test_torch_{matfree,baselines,session,guard}.py);
+    # mesh placement and the collective audit belong to the multi-device slice
     cases = [
-        (lambda: matfree.open_session(), "item 6"),
         (lambda: prepare(big.coo, num_blocks=4, mode="matfree", mesh=object(), device="cpu"),
          "item 8"),
         (lambda: prepare(prob.A, num_blocks=4, mesh=object(), device="cpu"), "multi-device"),
-        (lambda: prepare(prob.A, method="dgd", num_blocks=4, device="cpu"), "baselines"),
-        (lambda: prepare(prob.A, method="cgnr", num_blocks=4, device="cpu"), "baselines"),
+        (lambda: obs.audit_epoch_collectives(None, prob.b), "item 8"),
     ]
     for call, item in cases:
         with pytest.raises(NotImplementedError, match=item):
             call()
     prep = prepare(prob.A, num_blocks=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        prep.open_session()
-    res = prep.solve(prob.b, num_epochs=3)
-    with pytest.raises(NotImplementedError, match="guard"):
-        res.assess_health()
     arrays, meta = prep.to_state()
     with pytest.raises(ValueError, match="matrix-free"):
         type(prep).from_state(arrays, {**meta, "path": "matfree"}, device="cpu")
@@ -217,6 +211,9 @@ def _imports(path: Path) -> set[str]:
 def test_port_never_imports_jax_or_repro():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py"]
     assert len(files) > 20
+    ported = {f.relative_to(PORT).as_posix() for f in files if PORT in f.parents}
+    assert {"core/dgd.py", "core/cg.py", "core/guard.py", "core/session.py",
+            "obs/__init__.py", "obs/convergence.py"} <= ported
     offenders = {
         str(f.relative_to(ROOT)): sorted(_imports(f) & {"jax", "jaxlib", "repro"})
         for f in files
@@ -228,7 +225,8 @@ def test_importing_the_port_loads_no_jax():
     code = (
         "import sys, repro_torch.core, repro_torch.launch.solve, repro_torch.kernels.trisolve.ops, "
         "repro_torch.kernels.project.ops, repro_torch.kernels.spmm.ops, repro_torch.core.matfree, "
-        "repro_torch.sparse.bsr\n"
+        "repro_torch.sparse.bsr, repro_torch.core.dgd, repro_torch.core.cg, repro_torch.core.guard, "
+        "repro_torch.core.session, repro_torch.obs, repro_torch.obs.convergence\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
     )
