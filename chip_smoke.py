@@ -64,9 +64,26 @@
 9. plants a NaN in one column of b on both kernel paths, which the watchdog
    must flag alone, and checks that a matrix-free ``block_history`` solve
    returns x bit for bit, printing its per-block convergence report;
-10. prints the kernel table as one JSON line (with a row per kernel of one
-   warm session update, carrying the measured case of the same shapes), the
-   card line again, and the ``{"ok": true, "device": ...}`` line last.
+10. serves requests through the port's ``SolveServer`` (``repro_torch.serving``,
+   kernels on, max_batch 32, 5 ms window, cap 300) on both systems: the
+   serving command line's Poisson trace (256 requests at 2000 req/s; every
+   request answered once, within the kernels-on/off gate (1e-4·max(1,
+   max|x|) dense, 2.5e-4·max|x| matrix-free) of a direct solve of its column
+   at the served width and within one epoch of it, the summed epochs within
+   2% of the JAX package's, the served batches launching the path's
+   kernels, counted around the replay), one profiled served batch, the
+   session phases' streams as 32 one-column ``ServerSession``s (epochs
+   within 2% of the JAX package's own server replay, at most 0.7x the
+   independent solves'), 32 requests at max_batch 1 and 32 (printed), a
+   checkpoint save and a restore by a fresh server with a pool of one (no
+   prepare, served bits equal to the saved solver's, the evicted dense
+   solver's memory released), and a fault plan on the dense replay (the
+   poison fails alone, a one-shot error is redispatched, the watchdog flags
+   the NaN column alone); prints the serving numbers beside the card line;
+11. prints the kernel table as one JSON line (with a row per kernel of one
+   warm session update and of one served batch, carrying the measured case
+   of the same shapes), the card line again, and the ``{"ok": true,
+   "device": ...}`` line last.
 
 The kernel cases are timed twice: with CUDA events around
 back-to-back calls (``ms``, which includes the Python wrapper's host cost
@@ -126,6 +143,27 @@ STREAM_UPDATES, STREAM_COLS, STREAM_SEED, STREAM_AMP = 12, 32, 2, 2e-3
 # matrix-free); the card is gated at the reference test's 0.7
 STREAM_CAP = 300
 SESSION_RATIO_GATE = 0.7
+# the serving phases: the serving command line's Poisson trace (256 requests
+# at 2000 req/s, seed 0) through a SolveServer of max_batch 32, 5 ms window,
+# cap STREAM_CAP, on the session phases' systems
+SERVE_REQUESTS, SERVE_RATE, SERVE_BATCH, SERVE_WAIT_MS = 256, 2000.0, 32, 5.0
+# the JAX package on the CPU for the same traffic: the Poisson tol (3x the cold
+# floor of the first 32 requests at the cap, as stream_tol) and the summed
+# epochs-to-tol of the 256 requests at it (batched solves at the served width;
+# a column's count does not depend on its batchmates), and the drifting
+# streams' summed epochs-to-tol through the JAX package's own SolveServer
+# (32 one-column sessions, the session phases' tol), which equal the direct
+# sessions' JAX_CPU_STREAM totals:
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python -c "import chip_smoke, repro.core, \
+#       repro.sparse, repro.serving.queue; chip_smoke.print_serving_reference( \
+#       repro.core.prepare, repro.sparse.make_problem, repro.serving.queue.SolveServer)"
+JAX_CPU_SERVING = {
+    "dense": {"poisson_tol": 56.739200592041016, "poisson_iterations": 13761,
+              "drifting_iterations": 2239},
+    "matfree": {"poisson_tol": 10.222836256027222, "poisson_iterations": 25451,
+                "drifting_iterations": 3572},
+}
+SERVING_ITER_GATE = 0.02  # summed epochs-to-tol within 2% of the JAX package's
 # kernels-on vs kernels-off matrix-free solutions, as a share of max|x|: the
 # reference's own full-size gate between two float32 trajectories
 # (benchmarks/sparse.py)
@@ -797,6 +835,77 @@ def print_stream_reference(prepare, make_problem):
                           "ratio": out["session"] / out["independent"]}))
 
 
+def serving_problem(make_problem, path):
+    """(matrix to register, its dense form, prepare kwargs) of a serving
+    phase: the session phases' systems, the dense one pinned to the dense
+    path."""
+    A, dense, kw = stream_problem(make_problem, path)
+    return (A, dense, {**kw, "mode": "dense"}) if path == "dense" else (A, dense, kw)
+
+
+def poisson_traffic(dense):
+    """The serving command line's Poisson trace at seed 0: b_i = A x_i with
+    x_i from default_rng(1), then the inter-arrival gaps from the same
+    generator (the first request fires at once)."""
+    rng = np.random.default_rng(1)
+    xs = rng.standard_normal((dense.shape[1], SERVE_REQUESTS)).astype(np.float32)
+    gaps = rng.exponential(1.0 / SERVE_RATE, size=SERVE_REQUESTS)
+    gaps[0] = 0.0
+    return (dense @ xs).astype(np.float32), xs, gaps
+
+
+def direct_iterations(prep, rhs, tol):
+    """Per-request epochs-to-tol of batched solves of ``rhs`` in the served
+    width, and their solutions: what a served request must reproduce."""
+    iters, xs = [], []
+    for i in range(0, rhs.shape[1], SERVE_BATCH):
+        res = prep.solve(rhs[:, i:i + SERVE_BATCH], num_epochs=STREAM_CAP, tol=tol)
+        iters.append(res.iterations_to_tol(tol))
+        xs.append(res.x)
+    return np.concatenate(iters), np.concatenate(xs, axis=1)
+
+
+def serve_streams(server_cls, system, prepare_kwargs, bs, tol, **server_kw):
+    """The session phases' streams through a package's ``SolveServer``: one
+    ``ServerSession`` per column, all 32 stepping in lockstep, so each
+    update's columns coalesce into one batch. Returns the summed
+    epochs-to-tol of the sessions, each update's results (one list per
+    update, column order) and the server's stats."""
+    import asyncio
+
+    async def run():
+        async with server_cls(max_batch=SERVE_BATCH, max_wait_ms=SERVE_WAIT_MS,
+                              num_epochs=STREAM_CAP, tol=tol, prepare_kwargs=prepare_kwargs,
+                              **server_kw) as server:
+            fp = server.register(system)
+            sessions = [server.open_session(fp) for _ in range(bs[0].shape[1])]
+            updates = []
+            for b in bs:
+                updates.append(await asyncio.gather(
+                    *(s.update(b[:, i]) for i, s in enumerate(sessions))))
+            return sum(s.total_iterations for s in sessions), updates, server.stats()
+
+    return asyncio.run(asyncio.wait_for(run(), timeout=600))
+
+
+def print_serving_reference(prepare, make_problem, server_cls):
+    """The serving phases' reference numbers from a package's ``prepare``,
+    ``make_problem`` and ``SolveServer`` on the CPU (the JAX package's, for
+    ``JAX_CPU_SERVING``): the Poisson tol (3x the cold floor of the first 32
+    requests) and the summed epochs-to-tol of the 256 requests at it; the
+    drifting streams' summed epochs-to-tol through the server."""
+    for path in ("dense", "matfree"):
+        A, dense, kw = serving_problem(make_problem, path)
+        prep = prepare(A, **kw)
+        rhs, _, _ = poisson_traffic(dense)
+        tol = stream_tol(prep, rhs[:, :SERVE_BATCH])
+        iters, _ = direct_iterations(prep, rhs, tol)
+        drift, _, stats = serve_streams(server_cls, A, kw, drift_stream(dense),
+                                        JAX_CPU_STREAM[path]["tol"])
+        print(json.dumps({"path": path, "poisson_tol": tol, "poisson_iterations": int(iters.sum()),
+                          "drifting_iterations": int(drift), "drifting_batches": stats["batches"]}))
+
+
 def session_phase(torch, ops, path, make_problem, prepare):
     """A drifting stream through a session over the kernels-on solver on the
     card: every update and every independent solve below tol, each update
@@ -901,6 +1010,353 @@ def watchdog_phase(sessions):
     check(same, "matfree: block_history changed the solution")
 
 
+def pct(values, q) -> float:
+    return float(np.percentile(np.asarray(values, dtype=np.float64), q))
+
+
+def served_tolerance(path, x):
+    """The kernels-on/off gate for one served solution: 1e-4·max(1, max|x|)
+    dense, 2.5e-4·max|x| matrix-free."""
+    top = float(np.abs(x).max())
+    return 1e-4 * max(1.0, top) if path == "dense" else MATFREE_AGREEMENT * top
+
+
+def profile_served_batch(torch, loop, server, fp, B):
+    """One served batch of 32 requests under torch.profiler: the device
+    time by kernel (CUPTI sees the worker thread's launches too) against
+    the host wall of the batch, from submit to the last answer."""
+    import asyncio
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    async def batch():
+        return await asyncio.gather(*(server.submit(fp, B[:, i]) for i in range(B.shape[1])))
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        results = loop.run_until_complete(batch())
+        wall = time.perf_counter() - t0
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = e.self_cuda_time_total
+        rows.append((dev_us, e.count, e.key))
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    print(f"    profile of one served batch of {B.shape[1]}: wall {wall * 1e3:.3f} ms (solve "
+          f"{results[0].solve_ms:.3f} ms), device busy {busy_ms:.3f} ms "
+          f"({100 * busy_ms / (wall * 1e3):.1f}%), {sum(r[1] for r in rows)} kernels run")
+    for dev_us, count, name in rows[:6]:
+        print(f"      {dev_us / 1e3:9.3f} ms  x{count:<5d} {name[:90]}")
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
+            "top": [(name[:60], dev_us / 1e3) for dev_us, _, name in rows[:4]]}
+
+
+def poisson_phase(torch, ops, path, make_problem, serving, card):
+    """The serving command line's Poisson trace (256 requests at 2000 req/s)
+    through a ``SolveServer`` of the port on the card, kernels on: every
+    request answered once, by its own b, within the kernels-on/off gate of
+    a direct solve of the same columns at the served width and within one
+    epoch of it; the summed epochs-to-tol within 2% of the JAX package's; the served
+    batches launch the path's hand kernels (counts zeroed just before the
+    replay, read just after). Prints throughput, latency and queue wait
+    from the server's clock, the batches, the cold first batch apart, the
+    pool, the lateness of the arrivals (the GIL's share of queue wait) and
+    one profiled served batch."""
+    import asyncio
+
+    A, dense, kw = serving_problem(make_problem, path)
+    kw = {**kw, "use_kernels": True, "device": "cuda"}
+    rhs, _, gaps = poisson_traffic(dense)
+    tol = JAX_CPU_SERVING[path]["poisson_tol"]
+    tracer = serving.Tracer()
+    loop = asyncio.new_event_loop()
+    asyncio.set_event_loop(loop)
+    server = serving.SolveServer(max_batch=SERVE_BATCH, max_wait_ms=SERVE_WAIT_MS,
+                                 num_epochs=STREAM_CAP, tol=tol, prepare_kwargs=kw, tracer=tracer)
+    fp = server.register(A)
+
+    async def replay():
+        t_start = server.clock.now()
+        reset_launches(ops)
+        t0 = time.perf_counter()
+        results = await serving.replay_trace(server, fp, rhs, gaps)
+        wall = time.perf_counter() - t0
+        return results, read_launches(ops), wall, t_start
+
+    results, launches, wall, t_start = loop.run_until_complete(asyncio.wait_for(replay(), 600))
+    stats = server.stats()
+    spans = tracer.spans()
+    batches = sorted((s for s in spans if s.name == "batch"), key=lambda s: s.t0)
+    prepare_ms = sum(s.duration_ms for s in spans if s.name == "pool.prepare")
+    queue_spans = sorted((s for s in spans if s.name == "queue"), key=lambda s: s.trace_id)
+    lateness = [(s.t0 - t_start - a) * 1e3 for s, a in zip(queue_spans, np.cumsum(gaps))]
+    cold, warm = batches[0], batches[1:]
+    profile = profile_served_batch(torch, loop, server, fp, rhs[:, :SERVE_BATCH])
+    loop.run_until_complete(server.aclose())
+    loop.close()
+    asyncio.set_event_loop(None)
+    prep = server.pool.get(fp)
+    direct_its, direct_x = direct_iterations(prep, rhs, tol)
+
+    n = len(results)
+    lat = [r.queue_ms + r.solve_ms for r in results]
+    queue = [r.queue_ms for r in results]
+    its = np.array([r.iterations for r in results])
+    nb = stats["batches"]
+    per_batch = {k: v / nb for k, v in launches.items()}
+    worst, bit_equal = 0.0, 0
+    for i, r in enumerate(results):
+        diff = float(np.abs(r.x - direct_x[:, i]).max())
+        worst = max(worst, diff / served_tolerance(path, direct_x[:, i]))
+        bit_equal += bool(np.array_equal(r.x, direct_x[:, i]))
+    ref_total = JAX_CPU_SERVING[path]["poisson_iterations"]
+    total = int(its.sum())
+    print(f"  {path} Poisson replay [{card}]: {n} requests at ~{SERVE_RATE:g} req/s in {wall:.3f} s "
+          f"-> {n / wall:.1f} req/s; after the cold batch {(n - cold.args['batch_size']) / (batches[-1].t1 - cold.t1):.1f} req/s")
+    print(f"    latency ms p50 {pct(lat, 50):.1f} p99 {pct(lat, 99):.1f} max {max(lat):.1f}; queue wait "
+          f"ms p50 {pct(queue, 50):.1f} p99 {pct(queue, 99):.1f}; arrival lateness ms p50 "
+          f"{pct(lateness, 50):.3f} p99 {pct(lateness, 99):.3f} max {max(lateness):.3f}")
+    print(f"    batches {nb} (mean size {stats['mean_batch_size']:.2f}, full {stats['full_batches']}, "
+          f"timeout-flushed {stats['timeout_flushes']}); cold first batch "
+          f"{cold.duration_ms:.1f} ms ({cold.args['batch_size']} requests, prepare "
+          f"{prepare_ms:.1f} ms inside), the rest mean {np.mean([b.duration_ms for b in warm]):.1f} ms "
+          f"min {min(b.duration_ms for b in warm):.1f} max {max(b.duration_ms for b in warm):.1f}")
+    print(f"    pool hits {stats['hits']} prepares {stats['prepares']} restores {stats['restores']}; "
+          f"launches per served batch {per_batch}")
+    print(f"    against direct solves at width {SERVE_BATCH}: worst |x - x_direct| / gate "
+          f"{worst:.3f}, {bit_equal}/{n} bit-equal, iterations max diff "
+          f"{int(np.abs(its - direct_its).max())}; summed epochs-to-tol {total} vs JAX CPU "
+          f"{ref_total} (ratio {total / ref_total:.4f}, tol {tol:.6g})")
+    check(n == SERVE_REQUESTS and stats["requests"] == n and stats["failed_requests"] == 0,
+          f"{path}: {stats['requests']} answered of {n}")
+    check(worst <= 1.0, f"{path}: a served solution is off its direct solve by {worst:.3f} x the gate")
+    check(int(np.abs(its - direct_its).max()) <= 1, f"{path}: iterations differ by more than one")
+    check(abs(total / ref_total - 1.0) <= SERVING_ITER_GATE,
+          f"{path}: summed epochs-to-tol {total} not within 2% of the JAX package's {ref_total}")
+    if path == "dense":
+        check(launches["trisolve"] == nb and launches["consensus_update"] == STREAM_CAP * nb,
+              f"dense served batches: expected 1 trisolve and {STREAM_CAP} consensus updates "
+              f"per batch: {launches} over {nb}")
+    else:
+        check(launches["spmm_fused_packed"] == STREAM_CAP * nb and launches["spmm"] >= nb
+              and launches["spmm_fused"] == 0,
+              f"matfree served batches: expected {STREAM_CAP} fused packed passes and spmm_packed "
+              f"per batch, no staged pass: {launches} over {nb}")
+    return {"pool": server.pool, "fp": fp, "A": A, "dense": dense, "kw": kw, "rhs": rhs,
+            "tol": tol, "gaps": gaps, "direct_x": direct_x, "launches": launches,
+            "per_batch": per_batch, "batches": nb, "throughput": n / wall,
+            "lat_p50": pct(lat, 50), "lat_p99": pct(lat, 99), "queue_p50": pct(queue, 50),
+            "queue_p99": pct(queue, 99), "mean_batch": stats["mean_batch_size"],
+            "cold_batch_ms": cold.duration_ms, "prepare_ms": prepare_ms,
+            "warm_batch_ms": float(np.mean([b.duration_ms for b in warm])),
+            "iterations": total, "bit_equal": bit_equal, "profile": profile,
+            "lateness_p99": pct(lateness, 99)}
+
+
+def drifting_phase(path, run, session, serving, card):
+    """The session phases' streams as 32 concurrent ``ServerSession``s of
+    one column through the pooled kernels-on solver: the summed epochs-to-tol
+    within 2% of the JAX package's own server replay, at most 0.7x the
+    independent solves' of the session phase, every update converged."""
+    t0 = time.perf_counter()
+    total, updates, stats = serve_streams(
+        serving.SolveServer, run["A"], run["kw"], drift_stream(run["dense"]), session["tol"],
+        pool=run["pool"])
+    wall = time.perf_counter() - t0
+    ref = JAX_CPU_SERVING[path]["drifting_iterations"]
+    ratio = total / session["independent_epochs"]
+    bad = [(t, i) for t, upd in enumerate(updates) for i, r in enumerate(upd)
+           if not (r.converged and np.isfinite(r.x).all())]
+    print(f"  {path} drifting [{card}]: {STREAM_COLS} server sessions x {STREAM_UPDATES} updates in "
+          f"{wall:.3f} s, {stats['batches']} batches (mean size {stats['mean_batch_size']:.2f}); "
+          f"summed epochs-to-tol {total} vs JAX CPU server {ref} (ratio {total / ref:.4f}); "
+          f"/ independent {session['independent_epochs']} = {ratio:.4f} (gate {SESSION_RATIO_GATE})")
+    check(not bad, f"{path} drifting: unconverged or non-finite updates {bad[:5]}")
+    check(abs(total / ref - 1.0) <= SERVING_ITER_GATE,
+          f"{path} drifting: {total} epochs not within 2% of the JAX server's {ref}")
+    check(ratio <= SESSION_RATIO_GATE, f"{path} drifting: ratio {ratio} above the gate")
+    return {"iterations": total, "ratio": ratio, "wall_s": wall, "batches": stats["batches"]}
+
+
+def coalescing_phase(run, serving, card):
+    """32 dense requests at once through the pooled solver, at max_batch 1
+    and at 32 (printed, not gated)."""
+    import asyncio
+
+    out = {}
+    B = run["rhs"][:, :SERVE_BATCH]
+    for max_batch in (1, SERVE_BATCH):
+        async def burst():
+            async with serving.SolveServer(pool=run["pool"], max_batch=max_batch,
+                                           max_wait_ms=SERVE_WAIT_MS, num_epochs=STREAM_CAP,
+                                           tol=run["tol"]) as server:
+                t0 = time.perf_counter()
+                await serving.replay_trace(server, run["fp"], B, np.zeros(B.shape[1]))
+                return time.perf_counter() - t0, server.stats()
+
+        wall, stats = asyncio.run(asyncio.wait_for(burst(), 600))
+        out[max_batch] = B.shape[1] / wall
+        print(f"  coalescing [{card}]: {B.shape[1]} dense requests at max_batch {max_batch}: "
+              f"{wall:.3f} s, {stats['batches']} batches -> {out[max_batch]:.1f} req/s")
+    return out
+
+
+def checkpoint_phase(torch, runs, serving, card):
+    """The pooled solvers saved through the port's ``CheckpointStore`` and
+    restored by a fresh server with a fresh pool of one entry: no prepare,
+    two restores, each served batch equal bit for bit to the saved solver's
+    solve of it; and the dense solver's eviction (the matrix-free system's
+    restore) releases at least half its ``memory_bytes`` on the card."""
+    import asyncio
+    import gc
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        store = serving.CheckpointStore(d)
+        saved = {}
+        for path, run in runs.items():
+            t0 = time.perf_counter()
+            prep = run["pool"].get(run["fp"])
+            check(store.save(run["fp"], prep, run["kw"]), f"{path}: checkpoint save refused")
+            saved[path] = (prep, time.perf_counter() - t0)
+        tracer = serving.Tracer()
+        memory = {}
+
+        async def restore():
+            async with serving.SolveServer(max_batch=SERVE_BATCH, max_wait_ms=SERVE_WAIT_MS,
+                                           num_epochs=STREAM_CAP, pool_size=1, checkpoint=d,
+                                           tracer=tracer) as server:
+                fps = {path: server.register(run["A"], **run["kw"]) for path, run in runs.items()}
+                served = {}
+                for path, run in runs.items():
+                    B = run["rhs"][:, :SERVE_BATCH]
+                    opts = serving.SubmitOptions(tol=run["tol"])
+                    served[path] = await asyncio.gather(
+                        *(server.submit(fps[path], B[:, i], opts) for i in range(B.shape[1])))
+                    gc.collect()
+                    torch.cuda.synchronize()
+                    memory[path] = (torch.cuda.memory_allocated(), server.pool.resident())
+                return served, server.stats()
+
+        served, stats = asyncio.run(asyncio.wait_for(restore(), 600))
+    restore_ms = {s.args["fingerprint"]: s.duration_ms for s in tracer.spans()
+                  if s.name == "pool.restore"}
+    out = {"restores": stats["restores"], "prepares": stats["prepares"]}
+    for path, run in runs.items():
+        prep, save_s = saved[path]
+        B = run["rhs"][:, :SERVE_BATCH]
+        want = prep.solve(B, num_epochs=STREAM_CAP, tol=run["tol"]).x
+        same = sum(bool(np.array_equal(r.x, want[:, i])) for i, r in enumerate(served[path]))
+        out[path] = {"restore_ms": restore_ms.get(run["fp"]), "prepare_ms": run["prepare_ms"],
+                     "save_s": save_s, "bit_equal": same}
+        print(f"  checkpoint {path} [{card}]: save {save_s * 1e3:.1f} ms, restore "
+              f"{restore_ms.get(run['fp'], float('nan')):.1f} ms against prepare "
+              f"{run['prepare_ms']:.1f} ms; served batch bit-equal to the saved solver on "
+              f"{same}/{B.shape[1]} requests")
+        check(same == B.shape[1], f"{path}: restored solves differ from the saved solver's")
+    print(f"  restoring server: pool restores {stats['restores']}, prepares {stats['prepares']}, "
+          f"evictions {stats['evictions']}")
+    check(stats["restores"] == 2 and stats["prepares"] == 0,
+          f"the restoring server prepared: {stats}")
+    (held, (dense_entry,)), (after, _) = memory["dense"], memory["matfree"]
+    freed = held - after
+    print(f"  eviction of the dense solver ({dense_entry['memory_bytes'] / 1e6:.1f} MB of factors): "
+          f"torch.cuda.memory_allocated {held / 1e6:.1f} -> {after / 1e6:.1f} MB "
+          f"(freed {freed / 1e6:.1f} MB)")
+    check(freed >= 0.5 * dense_entry["memory_bytes"],
+          f"evicting the dense solver freed {freed} bytes of {dense_entry['memory_bytes']}")
+    out["freed_bytes"] = freed
+    out["dense_memory_bytes"] = dense_entry["memory_bytes"]
+    return out
+
+
+def fault_phase(run, serving, card):
+    """One fault plan on the dense Poisson replay (watchdog armed, replay
+    with ``return_exceptions``): a persistent poison fails alone, with
+    ``SolveFailure``; a one-shot solve error is retried (the failing batch
+    redispatched in halves) and answered; a NaN planted in one column is
+    flagged by the watchdog, that column alone, and recovers on the retry.
+    Every other request is answered within the kernels-on/off gate."""
+    import asyncio
+
+    poison, transient, nan = 40, 100, 170
+    plan = serving.FaultPlan(rules=(
+        serving.FaultRule(site="solve", kind="error", request=poison),
+        serving.FaultRule(site="solve", kind="error", request=transient, times=1),
+        serving.FaultRule(site="solve", kind="nan", request=nan, times=1),
+    ), seed=17)
+    faults = serving.FaultInjector(plan)
+
+    async def replay():
+        async with serving.SolveServer(pool=run["pool"], max_batch=SERVE_BATCH,
+                                       max_wait_ms=SERVE_WAIT_MS, num_epochs=STREAM_CAP,
+                                       tol=run["tol"], faults=faults,
+                                       watchdog=serving.Watchdog()) as server:
+            t0 = time.perf_counter()
+            results = await serving.replay_trace(server, run["fp"], run["rhs"], run["gaps"],
+                                                 return_exceptions=True)
+            v = server.metrics.value
+            flags = {r: int(v("server_failures_total", reason=r)) for r in ("nan", "stalled")}
+            return results, time.perf_counter() - t0, server.stats(), flags
+
+    results, wall, stats, flags = asyncio.run(asyncio.wait_for(replay(), 600))
+    failed = {i: r for i, r in enumerate(results) if isinstance(r, BaseException)}
+    worst = max(float(np.abs(r.x - run["direct_x"][:, i]).max())
+                / served_tolerance("dense", run["direct_x"][:, i])
+                for i, r in enumerate(results) if i not in failed)
+    fires = [s["fires"] for s in faults.stats()]
+    attempts = {i: r.attempts for i, r in enumerate(results) if i not in failed and r.attempts != 1}
+    print(f"  faults [{card}]: {len(results)} requests in {wall:.3f} s; failed {sorted(failed)} "
+          f"({[(f.reason, f.request, f.attempts) for f in failed.values()]}); rule fires {fires}; "
+          f"watchdog flags {flags}; retries {stats['retries']}, recovered "
+          f"{stats['recovered_requests']}; requests with more than one attempt {attempts}; "
+          f"worst |x - x_direct| / gate {worst:.3f}")
+    check(set(failed) == {poison} and isinstance(failed[poison], serving.SolveFailure)
+          and failed[poison].request == poison and failed[poison].reason == "error",
+          f"faults: expected request {poison} alone to fail: {failed}")
+    check(worst <= 1.0, f"faults: a batchmate is off its direct solve by {worst:.3f} x the gate")
+    check(fires[1] == 1 and stats["retries"] >= 1,
+          f"faults: the one-shot error fired {fires[1]} times, retries {stats['retries']}")
+    check(flags == {"nan": 1, "stalled": 0} and attempts == {nan: 2},
+          f"faults: watchdog flags {flags}, attempts {attempts}: expected request {nan} alone")
+    return {"failed": sorted(failed), "fires": fires, "flags": flags, "wall_s": wall,
+            "retries": stats["retries"], "recovered": stats["recovered_requests"]}
+
+
+def serving_phases(torch, ops, make_problem, sessions, card):
+    """Every serving phase on the card, in order; returns their numbers."""
+    from repro_torch import serving as srv
+    from repro_torch.core import Watchdog
+    from repro_torch.obs import Tracer
+
+    serving = SimpleNamespace(
+        SolveServer=srv.SolveServer, replay_trace=srv.replay_trace,
+        CheckpointStore=srv.CheckpointStore, SubmitOptions=srv.SubmitOptions,
+        FaultPlan=srv.FaultPlan, FaultRule=srv.FaultRule, FaultInjector=srv.FaultInjector,
+        SolveFailure=srv.SolveFailure, Tracer=Tracer, Watchdog=Watchdog)
+    t0 = time.perf_counter()
+    runs = {path: poisson_phase(torch, ops, path, make_problem, serving, card)
+            for path in ("dense", "matfree")}
+    drifting = {path: drifting_phase(path, runs[path], sessions[path], serving, card)
+                for path in ("dense", "matfree")}
+    coalescing = coalescing_phase(runs["dense"], serving, card)
+    restore = checkpoint_phase(torch, runs, serving, card)
+    faults = fault_phase(runs["dense"], serving, card)
+    seconds = time.perf_counter() - t0
+    print(f"  serving phases: {seconds:.1f} s")
+    summary = {path: {k: v for k, v in run.items() if isinstance(v, (int, float, str, dict))
+                      and k not in ("kw", "pool")} for path, run in runs.items()}
+    print(json.dumps({"serving": {"poisson": summary, "drifting": drifting,
+                                  "coalescing_req_per_s": coalescing, "checkpoint": restore,
+                                  "faults": faults, "seconds": seconds}, "card": card}))
+    return runs
+
+
 def main() -> int:
     import torch
 
@@ -988,6 +1444,9 @@ def main() -> int:
     t0 = time.perf_counter()
     watchdog_phase(sessions)
     print(f"  watchdog phase: {time.perf_counter() - t0:.1f} s")
+    print(f"serving (repro_torch.serving.SolveServer, kernels on, max_batch {SERVE_BATCH}, "
+          f"{SERVE_WAIT_MS:g} ms window, cap {STREAM_CAP}) on {card}:")
+    served = serving_phases(torch, ops, make_problem, sessions, card)
 
     def entry(name, source, replaces, launches, case, extra=(), **notes):
         out = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -999,6 +1458,15 @@ def main() -> int:
     staged = {"main_path": False,
               "note": "the staged interface counterpart; the main path runs spmm_fused_packed"}
     on_session = {"path": f"one warm update of the session phase (update {STREAM_UPDATES // 2})"}
+
+    def on_served(path):
+        run = served[path]
+        return {"path": "a served batch of the Poisson phase", "launches_per": "served batch",
+                "batches": run["batches"], "launches_in_replay": run["launches"]}
+
+    def per_batch(path, kernel):
+        value = served[path]["per_batch"][kernel]
+        return int(value) if float(value).is_integer() else value
 
     kernels = [
         entry("trisolve.upper", TRISOLVE_SRC, TRISOLVE_TPU,
@@ -1037,6 +1505,18 @@ def main() -> int:
         entry("spmm_fused_packed.session_matfree", SPMM_SRC, SPMM_FUSED_TPU,
               sessions["matfree"]["launches"]["spmm_fused_packed"], "spmm_fused_packed.n2327",
               **on_session),
+        # one served batch of the Poisson phases (launches per batch: the
+        # replay's counts over its batches); same operand shapes as the cases
+        entry("trisolve.served_dense", TRISOLVE_SRC, TRISOLVE_TPU,
+              per_batch("dense", "trisolve"), "trisolve.lower_t", **on_served("dense")),
+        entry("consensus_update.served_dense", PROJECT_SRC, PROJECT_TPU,
+              per_batch("dense", "consensus_update"), "consensus_update.wide",
+              **on_served("dense")),
+        entry("spmm.served_matfree", SPMM_SRC, SPMM_TPU, per_batch("matfree", "spmm"),
+              "spmm.fwd.n2327", **on_served("matfree")),
+        entry("spmm_fused_packed.served_matfree", SPMM_SRC, SPMM_FUSED_TPU,
+              per_batch("matfree", "spmm_fused_packed"), "spmm_fused_packed.n2327",
+              **on_served("matfree")),
     ]
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

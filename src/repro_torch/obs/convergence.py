@@ -17,8 +17,8 @@ trace into decisions:
     per-block epochs-to-tolerance.
 
 Host-side numpy over the history a solve already returned.
-``audit_epoch_collectives`` counts the collectives of a multi-device epoch,
-which the port does not run yet.
+``audit_epoch_collectives`` and ``collect_reduces`` count the collectives
+of a multi-device epoch, which the port does not run yet.
 """
 from __future__ import annotations
 
@@ -132,4 +132,13 @@ def audit_epoch_collectives(*args, **kwargs) -> dict:
     raise NotImplementedError(
         "audit_epoch_collectives counts the collectives of the multi-device "
         "solve, not ported yet: ROADMAP Queue 1 item 8 (multi-device)"
+    )
+
+
+def collect_reduces(*args, **kwargs):
+    """The all-reduces of a sharded epoch's program: the port has no
+    multi-device path yet, so there is nothing to collect."""
+    raise NotImplementedError(
+        "collect_reduces lists the collectives of the multi-device solve, "
+        "not ported yet: ROADMAP Queue 1 item 8 (multi-device)"
     )

@@ -648,3 +648,66 @@ def test_baselines_on_card_match_cpu(cuda, method):
     np.testing.assert_allclose(got.history["residual_sq"][:5], want.history["residual_sq"][:5],
                                rtol=1e-4)
     assert got.gamma is None and got.assess_health().ok
+
+
+# -- serving on the card -------------------------------------------------------
+
+
+@pytest.mark.parametrize("path", ["dense", "matfree"])
+def test_served_poisson_replay_through_the_kernels(cuda, path):
+    """A small Poisson replay through the port's SolveServer on the card,
+    kernels on: every request answered by its own b, within the kernels'
+    solve gate of a direct solve of the same columns at the served width
+    and within one epoch of it; the served batches launch the path's hand
+    kernels (one trisolve and one consensus update per epoch dense, one
+    fused packed pass per epoch and no staged pass matrix-free)."""
+    import asyncio
+
+    from repro_torch.serving import SolveServer, replay_trace
+    from repro_torch.sparse import make_problem
+
+    cap, width, count = 200, 16, 64
+    if path == "dense":
+        prob = make_problem(n=256, m=1024, seed=3, dtype=np.float32)
+        system, kw = prob.A, dict(num_blocks=8, materialize_p=False, mode="dense")
+    else:
+        prob = make_problem(n=256, m=256, sparsity=0.98, seed=2, dtype=np.float32)
+        system, kw = prob.coo, dict(mode="matfree", num_blocks=8, gamma=2.0, eta=1.9)
+    kw = dict(kw, use_kernels=True, device="cuda")
+    rng = np.random.default_rng(1)
+    xs = rng.standard_normal((256, count)).astype(np.float32)
+    rhs = (prob.A @ xs).astype(np.float32)
+    gaps = rng.exponential(1.0 / 2000.0, size=count)
+    gaps[0] = 0.0
+
+    async def serve():
+        async with SolveServer(max_batch=width, max_wait_ms=5.0, num_epochs=cap,
+                               prepare_kwargs=kw) as server:
+            fp = server.register(system)
+            prep = server.pool.get(fp)
+            cold = prep.solve(rhs[:, :width], num_epochs=cap)
+            server.tol = tol = 3.0 * float(np.sqrt(np.max(cold.history["residual_sq"][-1])))
+            before = {"trisolve": trisolve_ops.launches, "project": project_ops.launches,
+                      **spmm_ops.launches}
+            results = await replay_trace(server, fp, rhs, gaps)
+            after = {"trisolve": trisolve_ops.launches, "project": project_ops.launches,
+                     **spmm_ops.launches}
+            return prep, tol, results, {k: after[k] - before[k] for k in after}, server.stats()
+
+    prep, tol, results, launches, stats = asyncio.run(asyncio.wait_for(serve(), 300))
+    nb = stats["batches"]
+    assert stats["requests"] == count and len(results) == count
+    for i in range(0, count, width):
+        direct = prep.solve(rhs[:, i:i + width], num_epochs=cap, tol=tol)
+        its = direct.iterations_to_tol(tol)
+        for j in range(width):
+            got, want = results[i + j], direct.x[:, j]
+            top = float(np.abs(want).max())
+            atol = 1e-4 * max(1.0, top) if path == "dense" else 2.5e-4 * top
+            np.testing.assert_allclose(got.x, want, atol=atol)
+            assert abs(got.iterations - int(its[j])) <= 1 and got.converged
+    if path == "dense":
+        assert launches["trisolve"] == nb and launches["project"] == cap * nb, launches
+    else:
+        assert launches["spmm_fused_packed"] == cap * nb and launches["spmm"] >= nb, launches
+        assert launches["spmm_fused"] == 0, launches

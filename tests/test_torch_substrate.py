@@ -151,6 +151,7 @@ def test_partition_system_on_cpu():
 def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch import resolve_device
     from repro_torch.core import prepare, solve
+    from repro_torch.launch import serve_solver
     from repro_torch.launch import solve as launch_solve
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -162,6 +163,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         lambda: prepare(prob.A, num_blocks=4, device=None),
         lambda: solve(prob.A, prob.b, num_blocks=4),
         lambda: launch_solve.main(["--n", "16", "--m", "64", "--blocks", "4"]),
+        lambda: serve_solver.main(["--n", "16", "--m", "64", "--num-blocks", "4",
+                                   "--requests", "2"]),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
@@ -174,17 +177,25 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 def test_not_implemented_stubs():
     from repro_torch import obs
     from repro_torch.core import prepare
+    from repro_torch.launch import serve_solver
+    from repro_torch.serving import SolveServer
 
     prob = tio.make_problem(n=16, m=64, seed=0, dtype=np.float32)
     big = tio.make_problem(n=256, m=256, seed=0, dtype=np.float32)
-    # every solve method, sessions, the watchdog and the per-block
-    # diagnostics run now (tests/test_torch_{matfree,baselines,session,guard}.py);
-    # mesh placement and the collective audit belong to the multi-device slice
+    # every solve method, sessions, the watchdog, the per-block diagnostics
+    # and serving run now (tests/test_torch_{matfree,baselines,session,guard,
+    # serving}.py); mesh placement, sharded serving and the collective audit
+    # belong to the multi-device slice
     cases = [
         (lambda: prepare(big.coo, num_blocks=4, mode="matfree", mesh=object(), device="cpu"),
          "item 8"),
         (lambda: prepare(prob.A, num_blocks=4, mesh=object(), device="cpu"), "multi-device"),
         (lambda: obs.audit_epoch_collectives(None, prob.b), "item 8"),
+        (lambda: obs.collect_reduces(None), "item 8"),
+        (lambda: SolveServer(prepare_kwargs=dict(num_blocks=4, mesh=object(), device="cpu")),
+         "item 8"),
+        (lambda: serve_solver.main(["--mode", "matfree", "--mesh", "4", "--device", "cpu"]),
+         "item 8"),
     ]
     for call, item in cases:
         with pytest.raises(NotImplementedError, match=item):
@@ -213,7 +224,10 @@ def test_port_never_imports_jax_or_repro():
     assert len(files) > 20
     ported = {f.relative_to(PORT).as_posix() for f in files if PORT in f.parents}
     assert {"core/dgd.py", "core/cg.py", "core/guard.py", "core/session.py",
-            "obs/__init__.py", "obs/convergence.py"} <= ported
+            "obs/__init__.py", "obs/convergence.py", "obs/clock.py", "obs/metrics.py",
+            "obs/trace.py", "serving/__init__.py", "serving/policy.py",
+            "serving/checkpoint.py", "serving/faults.py", "serving/queue.py",
+            "launch/serve_solver.py"} <= ported
     offenders = {
         str(f.relative_to(ROOT)): sorted(_imports(f) & {"jax", "jaxlib", "repro"})
         for f in files
@@ -226,7 +240,8 @@ def test_importing_the_port_loads_no_jax():
         "import sys, repro_torch.core, repro_torch.launch.solve, repro_torch.kernels.trisolve.ops, "
         "repro_torch.kernels.project.ops, repro_torch.kernels.spmm.ops, repro_torch.core.matfree, "
         "repro_torch.sparse.bsr, repro_torch.core.dgd, repro_torch.core.cg, repro_torch.core.guard, "
-        "repro_torch.core.session, repro_torch.obs, repro_torch.obs.convergence\n"
+        "repro_torch.core.session, repro_torch.obs, repro_torch.obs.convergence, "
+        "repro_torch.serving, repro_torch.launch.serve_solver\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
     )
