@@ -80,10 +80,27 @@
    solver's memory released), and a fault plan on the dense replay (the
    poison fails alone, a one-shot error is redispatched, the watchdog flags
    the NaN column alone); prints the serving numbers beside the card line;
-11. prints the kernel table as one JSON line (with a row per kernel of one
-   warm session update and of one served batch, carrying the measured case
-   of the same shapes), the card line again, and the ``{"ok": true,
-   "device": ...}`` line last.
+11. runs the multi-device path (``torch.distributed``): the reference's
+   sharded configuration (``benchmarks/sparse_sharded.py``: the paper-size
+   Schenk-like system of seed 5, J = 8, k = 32, 300 epochs, (γ, η) = (2.0,
+   1.9), kernels on) on a one-rank ``nccl`` mesh in this process, held
+   against the unsharded kernels-on solver (1e-5·max|x|, residual history,
+   ``iterations_to_tol``; bit-equality printed), with one fused packed pass
+   per epoch and the audited epoch's collectives; then ``launch.solve --mode
+   matfree --mesh 4 --backend gloo`` as a subprocess (4 ranks on the one
+   card) at the matrix-free path's two sizes (PCG at n=16384), held against phase 5's
+   single-host solves (2.5e-4·max|x|), each rank at most 1.15/4 of their
+   bytes, one fused packed pass per epoch per rank and the audited epoch;
+   the dense ``solve_sharded`` at the Table 1 width on one ``nccl`` rank and
+   on 4 ``gloo`` ranks (1e-5 apart), ``solve_sharded_2d`` on a (2, 2) mesh
+   (1e-4 from one rank, at n = 2328: the model axis halves n); and the
+   serving command line's Poisson trace through ``serve_solver --mesh 4
+   --backend gloo`` (every request answered, within 2.5e-4·max|x| of a
+   direct sharded solve); then times the SpMM kernels on a rank's shard;
+12. prints the kernel table as one JSON line (with a row per kernel of one
+   warm session update, of one served batch and of the multi-device runs,
+   carrying the measured case of the same shapes), the card line again, and
+   the ``{"ok": true, "device": ...}`` line last.
 
 The kernel cases are timed twice: with CUDA events around
 back-to-back calls (``ms``, which includes the Python wrapper's host cost
@@ -98,6 +115,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -168,6 +186,16 @@ SERVING_ITER_GATE = 0.02  # summed epochs-to-tol within 2% of the JAX package's
 # reference's own full-size gate between two float32 trajectories
 # (benchmarks/sparse.py)
 MATFREE_AGREEMENT = 2.5e-4
+
+# phase 11: the reference's sharded configuration (benchmarks/sparse_sharded.py
+# :59-66,120-133), its paper-scale parity gate RELERR_GATE and its per-rank
+# memory gate DEVICE_FRACTION_GATE = 1.15/D; the dense solvers at the
+# reference tests' tolerances (tests/test_distributed_solver.py:36, :229)
+MESH_N, MESH_SPARSITY, MESH_SEED, MESH_RHS_SEED = 2327, 0.9985, 5, 11
+MESH_RANKS = 4
+MESH_RELERR_GATE = 2.5e-4
+MESH_FRACTION_GATE = 1.15 / MESH_RANKS
+DENSE_SHARDED_ATOL, DENSE_2D_ATOL = 1e-5, 1e-4
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and the highest dense
 # FLOP/s for each input type (f32 outside the tensor cores; f64 and bf16 on
@@ -567,7 +595,7 @@ def matfree_run(torch, launch_solve, ops, n, mode, epochs):
             "warm_peak_bytes": peak, "staged_peak_bytes": staged_peak,
             "max_abs_diff_cold_vs_warm": cold_vs_warm,
             "max_abs_diff_vs_plain": diff, "inner_mean": float(inner.mean()),
-            "profile": profile}
+            "profile": profile, "x": res.x}
 
 
 def block_diag_csr(torch, indices, data, num_col_blocks):
@@ -583,10 +611,11 @@ def block_diag_csr(torch, indices, data, num_col_blocks):
 
 
 def spmm_phase(torch, spmm_ops, spmm_plain, spmm_packed_plain, spmm_fused_plain,
-               spmm_fused_packed_plain, op_small, op_big):
+               spmm_fused_packed_plain, op_small, op_big, only=None):
     """The SpMM kernels against their plain versions on the card, on the
     operators the matrix-free runs prepared (their packed forms included), at
-    k = 32."""
+    k = 32. ``only`` ({label: operator}) measures just the fused packed pass
+    and the packed forward and Gram products on those operators."""
     from repro_torch.sparse import PartitionedBSR, generate_schenk_like
     from repro_torch.sparse.bsr import _pad_cols
 
@@ -728,6 +757,15 @@ def spmm_phase(torch, spmm_ops, spmm_plain, spmm_packed_plain, spmm_fused_plain,
         check(err <= tol, f"{name}: max error {err} above {tol}")
         check(same, f"{name}: not bit-identical to the two spmm_packed launches")
 
+    bp = (op_big or next(iter(only.values()))).block_shape[0]
+    if only is not None:
+        for label, op in only.items():
+            fused_packed_case(f"spmm_fused_packed.{label}", op, 10)
+            case(f"spmm.fwd.{label}", "forward shards", op.fwd_indices, op.fwd_data,
+                 op.fwd_packed, col_tiles(op, 32), iters=10)
+            case(f"spmm.gram.{label}", "Gram shards", op.gram_indices, op.gram_data,
+                 op.gram_packed, _pad_cols(rows(op, 32), op.p_pad, bp), iters=10)
+        return results
     for label, op in (("n2327", op_small), ("n16384", op_big)):
         iters = 20 if label == "n2327" else 10
         fused_packed_case(f"spmm_fused_packed.{label}", op, iters)
@@ -737,7 +775,6 @@ def spmm_phase(torch, spmm_ops, spmm_plain, spmm_packed_plain, spmm_fused_plain,
              None, col_tiles(op, 32), row_tiles(op, 32), iters=iters)
     case("spmm.fwd.n2327.k1", "forward shards, one RHS", op_small.fwd_indices,
          op_small.fwd_data, op_small.fwd_packed, col_tiles(op_small, 1))
-    bp = op_big.block_shape[0]
     case("spmm.tra.n16384", "transposed shards", op_big.tra_indices, op_big.tra_data,
          op_big.tra_packed, _pad_cols(rows(op_big, 32), op_big.p_pad, bp), iters=10)
     case("spmm.gram.n16384", "Gram shards", op_big.gram_indices, op_big.gram_data,
@@ -1357,6 +1394,239 @@ def serving_phases(torch, ops, make_problem, sessions, card):
     return runs
 
 
+def run_module(module, args, timeout):
+    """``python -m module args`` with the checkout's sources on the path:
+    (stdout, seconds). A non-zero exit prints its output's end and fails."""
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", module, *args], capture_output=True, text=True,
+                         env=env, timeout=timeout)
+    if out.returncode:
+        print(out.stdout[-6000:])
+        print(out.stderr[-6000:], file=sys.stderr)
+    check(out.returncode == 0, f"{module} {' '.join(args)} exited {out.returncode}")
+    return out.stdout, time.perf_counter() - t0
+
+
+def load_run(path):
+    """A command line's ``--out`` file: its arrays and its JSON record."""
+    with np.load(path) as z:
+        out = {k: z[k] for k in z.files}
+    out["record"] = json.loads(str(out["record"]))
+    return out
+
+
+def first_shard(op, ranks):
+    """Rank 0's shard of ``op`` over ``ranks`` ranks, as ``place`` keeps it:
+    blocks [0, J/D) of every array, packed on the card."""
+    from repro_torch.sparse.bsr import _ARRAY_FIELDS
+
+    per = op.num_blocks // ranks
+    kept = {f: getattr(op, f)[:per] for f in _ARRAY_FIELDS if getattr(op, f) is not None}
+    return dataclasses.replace(op, **kept, fwd_packed=None, tra_packed=None, gram_packed=None,
+                               shard=(0, per, op.num_blocks)).with_packed()
+
+
+def mesh_d1_phase(torch, ops, prepare, tmp):
+    """One rank on ``nccl`` in this process: the sharded matrix-free solver
+    of the reference's sharded configuration against the unsharded
+    kernels-on solver, its launches and audited epoch; then the dense
+    ``solve_sharded`` of the Table 1 width (and its even-width twin, the 2-D
+    solver's reference) on the same one-rank group."""
+    import torch.distributed as dist
+
+    from repro_torch import obs
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch import sharded_solve
+    from repro_torch.sparse import generate_schenk_like
+
+    coo = generate_schenk_like(MESH_N, sparsity=MESH_SPARSITY, seed=MESH_SEED)
+    A = coo.to_dense().astype(np.float32)
+    xs = np.random.default_rng(MESH_RHS_SEED).standard_normal((MESH_N, 32)).astype(np.float32)
+    B = (A @ xs).astype(np.float32)
+    kw = dict(mode="matfree", num_blocks=8, use_kernels=True, gamma=2.0, eta=1.9)
+    single = prepare(coo, device="cuda", **kw)
+    mesh = tmesh.make_host_local_mesh(1, device="cuda", backend="nccl")
+    try:
+        sharded = prepare(coo, mesh=mesh, **kw)
+        reset_launches(ops)
+        got = sharded.solve(B, num_epochs=300)
+        launches = read_launches(ops)
+        want = single.solve(B, num_epochs=300)
+        rel = float(np.abs(got.x - want.x).max() / np.abs(want.x).max())
+        floor = 1e-9 * float(np.max(np.sum(B.astype(np.float64) ** 2, axis=0)))
+        hist_ok = bool(np.allclose(got.history["residual_sq"], want.history["residual_sq"],
+                                   rtol=1e-3, atol=floor))
+        tol = 3.0 * float(np.sqrt(np.max(want.history["residual_sq"][-1])))
+        its = sharded.solve(B, num_epochs=300, tol=tol).iterations_to_tol(tol)
+        its_single = single.solve(B, num_epochs=300, tol=tol).iterations_to_tol(tol)
+        audit = obs.audit_epoch_collectives(sharded, B, num_epochs=4)
+        audit_tol = obs.audit_epoch_collectives(sharded, B, num_epochs=4, tol=tol)
+        warm = sharded.solve(B, num_epochs=300).wall_seconds
+        warm_single = single.solve(B, num_epochs=300).wall_seconds
+        from repro_torch.launch.solve import _all_reduce_ms
+
+        nccl_ms = _all_reduce_ms(sharded.comm, MESH_N * 32, sharded.device)
+        print(f"  one nccl rank, n={MESH_N} k=32 300 epochs: max |x - x_single| / max|x| "
+              f"{rel:.3e} (gate 1e-5), bit-equal {np.array_equal(got.x, want.x)}, residual "
+              f"history within rtol 1e-3 {hist_ok}, iterations_to_tol equal "
+              f"{np.array_equal(its, its_single)} (tol {tol:.4g}, sum {int(its.sum())}); "
+              f"launches {launches}; audited epoch {audit['ops']} op(s) {audit['payload_elems']} "
+              f"elements, with tol {audit_tol['ops']} op(s) {audit_tol['payload_elems']}; warm "
+              f"solve {warm:.4f} s vs unsharded {warm_single:.4f} s; one {MESH_N * 32}-element "
+              f"nccl all-reduce {nccl_ms:.4f} ms; operator bytes "
+              f"{sharded.memory_bytes} (unsharded {single.memory_bytes})")
+        check(rel <= 1e-5, f"one-rank mesh: off the unsharded solve by {rel}")
+        check(hist_ok, "one-rank mesh: residual history off the unsharded one")
+        check(np.array_equal(its, its_single), "one-rank mesh: iterations_to_tol differ")
+        check(launches["spmm_fused_packed"] == 300 and launches["spmm_fused"] == 0,
+              f"one-rank mesh: expected 300 fused packed passes, no staged pass: {launches}")
+        nk = MESH_N * 32
+        check((audit["ops"], audit["payload_elems"]) == (1, nk)
+              and (audit_tol["ops"], audit_tol["payload_elems"]) == (2, nk + 32),
+              f"one-rank mesh: audited epoch {audit['ops']}/{audit['payload_elems']}, "
+              f"with tol {audit_tol['ops']}/{audit_tol['payload_elems']}")
+        dense = {}
+        for label, n, m in (("table1", 2327, 9308), ("even", 2328, 9312)):
+            t0 = time.perf_counter()
+            sharded_solve.rank_main(0, ["--n", str(n), "--m", str(m), "--blocks", "8",
+                                        "--rhs", "32", "--epochs", "80", "--device", "cuda",
+                                        "--backend", "nccl", "--out", str(tmp / f"d1_{label}.npz")])
+            dense[label] = load_run(tmp / f"d1_{label}.npz")
+            print(f"  dense solve_sharded, one nccl rank, m={m} n={n}: "
+                  f"{time.perf_counter() - t0:.2f} s")
+    finally:
+        dist.destroy_process_group()
+    return {"rel_vs_single": rel, "bit_equal": bool(np.array_equal(got.x, want.x)),
+            "launches": launches, "audit": audit, "audit_tol": audit_tol,
+            "warm_solve_seconds": warm, "single_warm_solve_seconds": warm_single,
+            "nccl_all_reduce_ms": nccl_ms, "op": sharded.op, "dense": dense}
+
+
+def mesh_d4_run(label, n, epochs, single, tmp):
+    """``launch.solve --mode matfree --mesh 4 --backend gloo`` on the card:
+    held against the phase-5 single-host run of the same system."""
+    args = ["--n", str(n), "--m", str(n), "--blocks", "8", "--mode", "matfree", "--kernels",
+            "--rhs", "32", "--epochs", str(epochs), "--gamma", "2.0", "--eta", "1.9",
+            "--mesh", str(MESH_RANKS), "--backend", "gloo", "--device", "cuda", "--audit",
+            "--profile", "--out", str(tmp / f"{label}.npz")]
+    _, seconds = run_module("repro_torch.launch.solve", args, timeout=900)
+    run = load_run(tmp / f"{label}.npz")
+    rec = run["record"]
+    rel = float(np.abs(run["x"] - single["x"]).max() / np.abs(single["x"]).max())
+    whole = single["prep"].memory_bytes
+    nk, pcg = n * 32, rec["gram_solver"] == "pcg"
+    print(f"  {MESH_RANKS} gloo ranks, n={n}: {seconds:.1f} s in all, gram "
+          f"solver {rec['gram_solver']}, max |x - x_single| / max|x| {rel:.3e} (gate "
+          f"{MESH_RELERR_GATE:g}), final_residual_sq_max {rec['final_residual_sq_max']:.6e}")
+    for r in rec["ranks"]:
+        busy, wall = r["device_busy_ms"], r["warm_wall_ms"]
+        share = (f", profiled warm solve {wall:.1f} ms with the device busy {busy:.1f} ms "
+                 f"({100 * busy / wall:.1f}%); one {nk}-element all-reduce "
+                 f"{r['all_reduce_ms']:.3f} ms on the card ({100 * epochs * r['all_reduce_ms'] / wall:.1f}% "
+                 f"of the warm solve at one per epoch), {r.get('all_reduce_host_ms', float('nan')):.3f} "
+                 f"ms on host tensors, {r['all_reduce_1_ms']:.3f} ms for one element")
+        print(f"    rank {r['rank']}: {r['device_bytes']} bytes ({r['device_bytes'] / whole:.4f} "
+              f"of the single solver's {whole}), cold solve {r['solve_seconds']:.4f} s{share}; "
+              f"launches {r['launches']}; audited epoch {r['audit']}, with tol {r['audit_tol']}")
+    check(rec["path"] == "matfree_sharded", f"mesh n={n}: path {rec['path']}")
+    check(rel <= MESH_RELERR_GATE, f"mesh n={n}: off the single-host solve by {rel}")
+    for r in rec["ranks"]:
+        check(r["device_bytes"] <= MESH_FRACTION_GATE * whole,
+              f"mesh n={n}: rank {r['rank']} holds {r['device_bytes']} of {whole} bytes")
+        check(r["launches"]["spmm_fused_packed"] == epochs and r["launches"]["spmm_fused"] == 0,
+              f"mesh n={n}: rank {r['rank']} launches {r['launches']}")
+        check(r["audit"] == {"ops": 1 + pcg, "payload_elems": nk + 32 * pcg}
+              and r["audit_tol"] == {"ops": 2 + pcg, "payload_elems": nk + 32 * (1 + pcg)},
+              f"mesh n={n}: rank {r['rank']} audited epoch {r['audit']} / {r['audit_tol']}")
+    return {"rel_vs_single": rel, "seconds": seconds, "ranks": rec["ranks"],
+            "gram_solver": rec["gram_solver"], "record": rec}
+
+
+def mesh_phase(torch, ops, prepare, mf_small, mf_big, card):
+    """Phase 11, the multi-device path; returns its numbers and the rank-0
+    shard operators whose kernels the kernel table times."""
+    import tempfile
+
+    from repro_torch.launch import mesh as tmesh
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        d1 = mesh_d1_phase(torch, ops, prepare, tmp)
+        # --mesh takes --mode matfree (as the reference's command line); at
+        # n = 16384 the Gram solver's own auto must resolve PCG, as phase 5's did
+        d4 = {"n2327": mesh_d4_run("n2327", 2327, 300, mf_small, tmp),
+              "n16384": mesh_d4_run("n16384", 16384, 100, mf_big, tmp)}
+        check(d4["n16384"]["gram_solver"] == "pcg", "mesh n=16384: expected the PCG Gram solver")
+        dense_args = ["--blocks", "8", "--rhs", "32", "--epochs", "80", "--device", "cuda",
+                      "--backend", "gloo"]
+        t0 = time.perf_counter()
+        tmesh.run_ranks(tmesh.run_commands, MESH_RANKS, "gloo", "cuda", ([
+            ("repro_torch.launch.sharded_solve", ["--n", "2327", "--m", "9308", "--mesh", "4",
+                                                  *dense_args, "--out", str(tmp / "d4.npz")]),
+            ("repro_torch.launch.sharded_solve", ["--n", "2328", "--m", "9312", "--mesh", "2",
+                                                  "--model", "2", *dense_args,
+                                                  "--out", str(tmp / "d2x2.npz")]),
+        ],))
+        dense_seconds = time.perf_counter() - t0
+        d4_dense, d2x2 = load_run(tmp / "d4.npz"), load_run(tmp / "d2x2.npz")
+    diff = float(np.abs(d4_dense["x"] - d1["dense"]["table1"]["x"]).max())
+    diff_2d = float(np.abs(d2x2["x"] - d1["dense"]["even"]["x"]).max())
+    print(f"  dense solve_sharded, {MESH_RANKS} gloo ranks at m=9308 n=2327 and "
+          f"solve_sharded_2d on (2, 2) at m=9312 n=2328 ({dense_seconds:.1f} s, spawn included): "
+          f"max |x_4 - x_1| {diff:.3e} (atol {DENSE_SHARDED_ATOL:g}), max |x_2d - x_1| "
+          f"{diff_2d:.3e} (atol {DENSE_2D_ATOL:g}); solve s per rank "
+          f"{[round(r['solve_seconds'], 4) for r in d4_dense['record']['ranks']]} (1-D), "
+          f"{[round(r['solve_seconds'], 4) for r in d2x2['record']['ranks']]} (2-D); "
+          f"final_residual_sq_max {d4_dense['record']['final_residual_sq_max']:.6e} vs one rank "
+          f"{d1['dense']['table1']['record']['final_residual_sq_max']:.6e}")
+    check(diff <= DENSE_SHARDED_ATOL, f"dense sharded: 4 ranks off one rank by {diff}")
+    check(diff_2d <= DENSE_2D_ATOL, f"2-D: off one rank by {diff_2d}")
+
+    tol = JAX_CPU_SERVING["matfree"]["poisson_tol"]
+    stdout, serve_seconds = run_module("repro_torch.launch.serve_solver", [
+        "--n", "2327", "--m", "2327", "--num-blocks", "8", "--mode", "matfree", "--kernels",
+        "--gamma", "2.0", "--eta", "1.9", "--epochs", str(STREAM_CAP), "--tol", repr(tol),
+        "--requests", str(SERVE_REQUESTS), "--rate", str(SERVE_RATE),
+        "--max-batch", str(SERVE_BATCH), "--max-wait-ms", str(SERVE_WAIT_MS),
+        "--mesh", str(MESH_RANKS), "--backend", "gloo", "--device", "cuda"], timeout=900)
+    served = json.loads(next(line for line in stdout.splitlines()
+                             if line.startswith("mesh: "))[len("mesh: "):])
+    for line in stdout.splitlines()[:6]:
+        print(f"    | {line}")
+    print(f"  served Poisson trace, {MESH_RANKS} gloo ranks [{card}]: {served['answered']} of "
+          f"{served['requests']} answered, {served['req_per_s']:.1f} req/s, latency ms p50 "
+          f"{served['p50_ms']:.1f} p99 {served['p99_ms']:.1f}; {served['batches']} batches, rank "
+          f"0 launches {served['launches_rank0']}; worst |x - x_direct| / max|x| "
+          f"{served['worst_rel_diff_vs_direct']:.3e} (gate {MESH_RELERR_GATE:g}), "
+          f"{served['bit_equal_vs_direct']} bit-equal; {serve_seconds:.1f} s in all")
+    check(served["answered"] == served["requests"] == SERVE_REQUESTS and served["failed"] == 0,
+          f"served mesh: {served['answered']} answered of {SERVE_REQUESTS}")
+    check(served["worst_rel_diff_vs_direct"] <= MESH_RELERR_GATE,
+          f"served mesh: off its direct solve by {served['worst_rel_diff_vs_direct']}")
+    check(served["launches_rank0"]["spmm_fused_packed"] >= served["batches"]
+          and served["launches_rank0"]["spmm_fused"] == 0,
+          f"served mesh: rank 0 launches {served['launches_rank0']}")
+    seconds = time.perf_counter() - t_phase
+    print("  the 4-rank times staged every all-reduce through gloo and host memory: they "
+          "measure the program on one card, not NCCL")
+    print(f"  multi-device phase: {seconds:.1f} s")
+    summary = {
+        "d1": {k: v for k, v in d1.items() if k not in ("op", "dense")},
+        "d4": {label: {k: v for k, v in run.items() if k != "record"}
+               for label, run in d4.items()},
+        "dense": {"max_abs_diff_4_vs_1": diff, "max_abs_diff_2d_vs_1": diff_2d,
+                  "seconds": dense_seconds},
+        "served": served, "seconds": seconds,
+    }
+    print(json.dumps({"mesh": summary, "card": card}, default=float))
+    shards = {"mesh_d1": d1["op"],
+              "shard4_n2327": first_shard(mf_small["prep"].op, MESH_RANKS),
+              "shard4_n16384": first_shard(mf_big["prep"].op, MESH_RANKS)}
+    return {"d1": d1, "d4": d4, "served": served, "shards": shards}
+
+
 def main() -> int:
     import torch
 
@@ -1447,6 +1717,12 @@ def main() -> int:
     print(f"serving (repro_torch.serving.SolveServer, kernels on, max_batch {SERVE_BATCH}, "
           f"{SERVE_WAIT_MS:g} ms window, cap {STREAM_CAP}) on {card}:")
     served = serving_phases(torch, ops, make_problem, sessions, card)
+    print(f"multi-device (torch.distributed; {MESH_RANKS} ranks share the one card through "
+          f"gloo) on {card}:")
+    mesh = mesh_phase(torch, ops, prepare, mf_small, mf_big, card)
+    print("SpMM kernels on the shards of the multi-device runs (kernel vs plain version):")
+    cases.update(spmm_phase(torch, spmm_ops, spmm_plain, spmm_packed_plain, spmm_fused_plain,
+                            spmm_fused_packed_plain, None, None, only=mesh["shards"]))
 
     def entry(name, source, replaces, launches, case, extra=(), **notes):
         out = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1517,6 +1793,35 @@ def main() -> int:
         entry("spmm_fused_packed.served_matfree", SPMM_SRC, SPMM_FUSED_TPU,
               per_batch("matfree", "spmm_fused_packed"), "spmm_fused_packed.n2327",
               **on_served("matfree")),
+    ]
+    on_mesh = {"path": "the multi-device phase", "backend": "gloo, 4 ranks on one card",
+               "launches_per": "rank (rank 0's count; every rank's is checked)"}
+    r2327, r16384 = mesh["d4"]["n2327"]["ranks"][0], mesh["d4"]["n16384"]["ranks"][0]
+    served_mesh = mesh["served"]
+    per_served = {k: v / served_mesh["batches"] for k, v in served_mesh["launches_rank0"].items()}
+    per_served = {k: int(v) if float(v).is_integer() else v for k, v in per_served.items()}
+    kernels += [
+        entry("spmm_fused_packed.mesh_nccl1", SPMM_SRC, SPMM_FUSED_TPU,
+              mesh["d1"]["launches"]["spmm_fused_packed"], "spmm_fused_packed.mesh_d1",
+              path="one nccl rank, the reference's sharded configuration"),
+        entry("spmm.mesh_nccl1", SPMM_SRC, SPMM_TPU, mesh["d1"]["launches"]["spmm"],
+              "spmm.fwd.mesh_d1", path="one nccl rank, the reference's sharded configuration"),
+        entry("spmm_fused_packed.mesh4_2327", SPMM_SRC, SPMM_FUSED_TPU,
+              r2327["launches"]["spmm_fused_packed"], "spmm_fused_packed.shard4_n2327", **on_mesh),
+        entry("spmm.mesh4_2327", SPMM_SRC, SPMM_TPU, r2327["launches"]["spmm"],
+              "spmm.fwd.shard4_n2327", **on_mesh),
+        entry("spmm_fused_packed.mesh4_16384", SPMM_SRC, SPMM_FUSED_TPU,
+              r16384["launches"]["spmm_fused_packed"], "spmm_fused_packed.shard4_n16384",
+              **on_mesh),
+        entry("spmm.mesh4_16384", SPMM_SRC, SPMM_TPU, r16384["launches"]["spmm"],
+              "spmm.gram.shard4_n16384", **on_mesh),
+        entry("spmm_fused_packed.served_mesh4", SPMM_SRC, SPMM_FUSED_TPU,
+              per_served["spmm_fused_packed"], "spmm_fused_packed.shard4_n2327",
+              path="a served batch of the mesh replay", launches_per="served batch (rank 0)",
+              batches=served_mesh["batches"]),
+        entry("spmm.served_mesh4", SPMM_SRC, SPMM_TPU, per_served["spmm"],
+              "spmm.fwd.shard4_n2327", path="a served batch of the mesh replay",
+              launches_per="served batch (rank 0)", batches=served_mesh["batches"]),
     ]
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
 """The paper's primary contribution, ported to PyTorch: (Decomposed)
 Accelerated Projection-Based Consensus solvers on the dense and the
-matrix-free paths, the DGD and CGNR baselines, streaming sessions and the
-solve watchdog."""
+matrix-free paths, the DGD and CGNR baselines, streaming sessions, the
+solve watchdog, and the multi-device solvers on ``torch.distributed`` (the
+sharded matrix-free solver, ``solve_sharded``/``solve_sharded_2d``)."""
 from repro_torch.core.partition import (
     Partition,
     PartitionPlan,
@@ -27,6 +28,8 @@ from repro_torch.core.solver_api import (
 )
 from repro_torch.core.session import DriftPredictor, Session
 from repro_torch.core.matfree import MatrixFreePreparedSolver, prepare_matfree
+from repro_torch.core.matfree_sharded import ShardedMatrixFreeSolver
+from repro_torch.core.distributed import repartition, solve_sharded, solve_sharded_2d
 from repro_torch.core.apc import solve_apc, setup_classical, classical_factors
 from repro_torch.core.dapc import (
     solve_dapc,
@@ -64,6 +67,10 @@ __all__ = [
     "DriftPredictor",
     "PreparedSolver",
     "MatrixFreePreparedSolver",
+    "ShardedMatrixFreeSolver",
+    "solve_sharded",
+    "solve_sharded_2d",
+    "repartition",
     "prepare",
     "prepare_matfree",
     "resolve_path",

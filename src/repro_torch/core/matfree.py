@@ -62,8 +62,6 @@ GRAM_SOLVERS = ("auto", "direct", "pcg")
 # auto goes direct while the stacked (J, p_pad, p_pad) Gram inverses fit
 DIRECT_GRAM_BYTES = 64 * 1024 * 1024
 
-_MESH_TODO = "ROADMAP Queue 1 item 8 (multi-device)"
-
 # device-to-host reads made by the PCG stopping test in this process
 host_syncs = 0
 
@@ -168,6 +166,15 @@ def _gram_pinv(op: PartitionedBSR, dtype) -> torch.Tensor:
     return torch.from_numpy(out).to(device=op.device, dtype=dtype)
 
 
+def _local_block_mean(a: torch.Tensor) -> torch.Tensor:
+    """(J, n, k) block stack -> (n, k) mean; on one device J is ALL blocks."""
+    return torch.mean(a, dim=0)
+
+
+def _identity(a):
+    return a
+
+
 def consensus_epochs(
     op: PartitionedBSR,
     diag_inv: torch.Tensor,
@@ -184,10 +191,30 @@ def consensus_epochs(
     warm_start: bool,
     tol2: float | None,
     num_epochs: int,
+    block_mean=_local_block_mean,
+    reduce_sum=_identity,
+    iters_reduce=_identity,
+    mark_epoch=None,
     x0=None,  # (n, k) predicted solution, or masked pair ((n, k), (k,))
     block_history: bool = False,  # per-block residual diagnostics
 ):
-    """The fused-projection consensus iteration on one device (all J blocks).
+    """The fused-projection consensus iteration over the blocks ``op`` holds:
+    all J on one device, or one shard's J_loc blocks on a rank of a mesh
+    (``repro_torch.core.matfree_sharded``). Three hooks are the only places
+    global information enters:
+
+      * ``block_mean`` — (J_loc, n, k) -> the GLOBAL block mean (n, k), the
+        consensus average of eqs. (5)/(7); a sharded caller passes the local
+        mean then one n·k all-reduce, the one collective of an epoch;
+      * ``reduce_sum`` — the per-shard residual partial sums -> global (k,);
+        a sharded caller without ``tol`` passes the identity and collapses
+        the emitted partials after the loop instead;
+      * ``iters_reduce`` — the per-shard inner-CG depths -> global (k,),
+        called by the PCG path only (the direct depth is the constant 1).
+
+    Each defaults to the single-device operation. ``mark_epoch(t)``, when
+    given, is called at the start of epoch t and with ``None`` after the
+    loop (the collective audit's epoch marker).
 
     ``gamma`` may be a ``(J,)`` vector and ``eta`` the pair ``(eta_vec (J,),
     eta_bar)``: eq. (7) becomes the η_j-weighted mean x̄⁺ = mean_j(η_j xs_j⁺)
@@ -239,12 +266,13 @@ def consensus_epochs(
         y0, setup_iters, r0 = _pcg_gram(
             op, u0, diag_inv, inner_iters, inner_tol, use_kernels,
         )
+        setup_iters = iters_reduce(setup_iters)
     x0s = op.rmatvec(y0, use_kernels)
     if xq is not None:
         x0s = x0s + xq
     # the CG residual hands back w0 = A_j x_j(0) = G y0 (+ A_j x0) for free
     w0 = bvecs - r0
-    xbar0 = torch.mean(x0s, dim=0)  # eq. (5)
+    xbar0 = block_mean(x0s)  # eq. (5)
     z0 = op.matvec(xbar0, use_kernels)  # probe of x̄_0
 
     def step(xs, xbar, q, w, z, ywarm, active):
@@ -257,6 +285,7 @@ def consensus_epochs(
                 op, u, diag_inv, inner_iters, inner_tol, use_kernels,
                 warm=ywarm if warm_start else None, active=active,
             )
+            used = iters_reduce(used)
         # x̄⁺ = KNOWN − (ηγ/J)·Σ_j A_jᵀy_j in exact arithmetic, and KNOWN
         # needs no transpose product — so the epoch's two tile products run
         # in ONE fused pass. The trajectory stays float-canonical: KNOWN is
@@ -269,10 +298,10 @@ def consensus_epochs(
         f, g = op.fused_project(known, y, use_kernels)
         xs_new = xs + gam * (xbar[None] - xs - g)  # eq. (6)
         if per_block:
-            q_new = torch.mean(eta_col * xs_new, dim=0)
+            q_new = block_mean(eta_col * xs_new)
             xbar_new = q_new + (1.0 - eta_bar) * xbar  # eq. (7), weighted
         else:
-            q_new = torch.mean(xs_new, dim=0)
+            q_new = block_mean(xs_new)
             xbar_new = eta * q_new + (1.0 - eta) * xbar  # eq. (7)
         z_new = f + op.matvec(xbar_new - known, use_kernels)
         # the exact inner solve keeps the paper's A_j x_j = b_j invariant,
@@ -298,12 +327,14 @@ def consensus_epochs(
     if ref is not None:
         hist["mse"] = torch.empty((num_epochs, k), dtype=bvecs.dtype, device=dev)
 
-    q_init = torch.mean(eta_col * x0s, dim=0) if per_block else xbar0
+    q_init = block_mean(eta_col * x0s) if per_block else xbar0
     carry = (x0s, xbar0, q_init, w0, z0, torch.zeros_like(y0))
     for t in range(num_epochs):
+        if mark_epoch is not None:
+            mark_epoch(t)
         # residual of the CURRENT x̄, read off the carried probe
         r_sq = (carry[4] - bvecs) ** 2
-        resid = torch.sum(r_sq, dim=(0, 1))
+        resid = reduce_sum(torch.sum(r_sq, dim=(0, 1)))
         active = None if tol2 is None else resid > tol2
         carry, used = step(*carry, active)
         hist["residual_sq"][t] = resid
@@ -312,12 +343,14 @@ def consensus_epochs(
             hist["block_residual_sq"][t] = torch.sum(r_sq, dim=1)
         if ref is not None:
             hist["mse"][t] = mse(carry[1])
+    if mark_epoch is not None:
+        mark_epoch(None)
     xbar = carry[1]
     # the probe is computed at epoch START, so emitted entry t is the
     # residual of x̄_t: entry 0 is the "initial" metric and the final x̄
     # gets one fresh probe after the loop
     rfin = op.matvec(xbar, use_kernels) - bvecs
-    resid_fin = torch.sum(rfin * rfin, dim=(0, 1))
+    resid_fin = reduce_sum(torch.sum(rfin * rfin, dim=(0, 1)))
     emitted = hist["residual_sq"]
     hist["residual_sq"] = torch.cat([emitted[1:], resid_fin[None]])
     initial = {"residual_sq": emitted[0], "inner_iters": setup_iters}
@@ -466,6 +499,25 @@ class MatrixFreePreparedSolver:
             arr = arr[:, None]
         return torch.as_tensor(arr, device=dev).to(dt)
 
+    def _epochs(self, bvecs, gamma_op, eta_op, ref, warm, *, tol, num_epochs,
+                inner_iters, block_history, **hooks):
+        """The consensus loop over this solver's blocks: ``(x̄, history)``
+        on the device. ``hooks`` are ``consensus_epochs``' reduction hooks
+        (a sharded solver passes its collectives)."""
+        return consensus_epochs(
+            self.op, self.diag_inv, self.gram_inv, bvecs, gamma_op, eta_op, ref,
+            direct=self.gram_solver == "direct",
+            inner_iters=inner_iters,
+            inner_tol=self.inner_tol,
+            use_kernels=self.use_kernels,
+            warm_start=self.warm_start,
+            tol2=None if tol is None else float(tol) ** 2,
+            num_epochs=num_epochs,
+            x0=warm,
+            block_history=block_history,
+            **hooks,
+        )
+
     def solve(
         self,
         b: np.ndarray,  # (m,) single RHS or (m, k) column batch
@@ -508,17 +560,9 @@ class MatrixFreePreparedSolver:
 
         t0 = time.perf_counter()
         gamma_op, eta_op = self._dynamics_operands(gamma, eta, per_block)
-        x, hist = consensus_epochs(
-            self.op, self.diag_inv, self.gram_inv, bvecs, gamma_op, eta_op, ref,
-            direct=self.gram_solver == "direct",
-            inner_iters=int(inner_iters),
-            inner_tol=self.inner_tol,
-            use_kernels=self.use_kernels,
-            warm_start=self.warm_start,
-            tol2=None if tol is None else float(tol) ** 2,
-            num_epochs=num_epochs,
-            x0=warm,
-            block_history=bool(block_history),
+        x, hist = self._epochs(
+            bvecs, gamma_op, eta_op, ref, warm, tol=tol, num_epochs=num_epochs,
+            inner_iters=int(inner_iters), block_history=bool(block_history),
         )
         synchronize(dev)
         wall = time.perf_counter() - t0
@@ -583,13 +627,20 @@ class MatrixFreePreparedSolver:
         """Rebuild on ``device`` from ``to_state`` output — this package's or
         the JAX package's (same format, same operator bytes)."""
         dev = resolve_device(device)
+        op = PartitionedBSR.from_arrays(arrays, meta["op"], device=dev,
+                                        packed=_packs(meta["use_kernels"], dev))
+        return cls._restore(op, arrays, meta, dev)
+
+    @classmethod
+    def _restore(cls, op, arrays, meta: dict, dev, blocks=slice(None), **placement):
+        """The solver over ``op`` with the rest of the state from ``arrays``;
+        ``blocks`` selects the per-block arrays' rows the operator holds."""
 
         def tensor(key):
-            return _tensor(np.asarray(arrays[key]), dev)
+            return _tensor(np.asarray(arrays[key])[blocks], dev)
 
         return cls(
-            op=PartitionedBSR.from_arrays(arrays, meta["op"], device=dev,
-                                          packed=_packs(meta["use_kernels"], dev)),
+            op=op,
             method=meta["method"],
             gamma=meta["gamma"],
             eta=meta["eta"],
@@ -602,6 +653,7 @@ class MatrixFreePreparedSolver:
             gram_inv=tensor("gram_inv") if "gram_inv" in arrays else None,
             warm_start=meta["warm_start"],
             **spectra_mod.dynamics_state(arrays, meta),
+            **placement,
         )
 
 
@@ -659,7 +711,13 @@ def prepare_matfree(
     ``PartitionPlan.cost_aware``; ``dynamics="per_block"`` estimates
     per-block Gram spectra at prepare time and defaults ``solve`` to the
     per-block (γ_j, η_j) consensus; ``plan`` injects a prebuilt plan.
-    ``mesh`` raises ``NotImplementedError`` (multi-device is not ported).
+
+    ``mesh`` (a ``DeviceMesh`` over the ranks of a process group, every rank
+    calling this) returns a ``ShardedMatrixFreeSolver``: the operator is
+    built in host memory and each rank keeps its contiguous J/D blocks on
+    its device (``PartitionedBSR.place``); ``num_blocks`` must divide evenly
+    over the devices of ``block_axes``. ``device=None`` is then the mesh's
+    device on this rank.
     """
     if method not in MATFREE_METHODS:
         raise ValueError(
@@ -677,8 +735,18 @@ def prepare_matfree(
             f"dynamics must be 'global'|'per_block', got {dynamics!r}"
         )
     if mesh is not None:
-        raise NotImplementedError(f"mesh= is not ported yet: {_MESH_TODO}")
-    dev = resolve_device(device)
+        from repro_torch.core import matfree_sharded
+
+        block_axes = tuple(block_axes)
+        num_devices = matfree_sharded.mesh_block_devices(mesh, block_axes)
+        if num_blocks % num_devices:
+            raise ValueError(
+                f"num_blocks={num_blocks} not divisible over the "
+                f"{num_devices} devices of mesh axes {block_axes}"
+            )
+        dev = matfree_sharded.mesh_device(mesh, device)
+    else:
+        dev = resolve_device(device)
     t0 = time.perf_counter()
     coo = A if isinstance(A, COOMatrix) else COOMatrix.from_dense(np.asarray(A))
     dtype = _np_dtype(dtype)
@@ -696,8 +764,12 @@ def prepare_matfree(
         with_gram=True,  # the inner-solve operator (near-diagonal, few % extra)
         balance=balance,
         plan=plan,
-        device=dev,
+        # a mesh's operator is built in host memory; each rank keeps its own
+        device="cpu" if mesh is not None else dev,
     )
+    whole = op
+    if mesh is not None:
+        op = op.place(mesh, block_axes, device=dev)
     if _packs(use_kernels, dev):
         op = op.with_packed()
     # relative-epsilon Jacobi clamp: padded rows stay 0, near-zero Gram
@@ -705,7 +777,8 @@ def prepare_matfree(
     diag_inv = op.jacobi_weights()
     block_gamma_w = block_eta_w = spectra = None
     if dynamics == "per_block":
-        spectra = spectra_mod.block_spectra_matfree(op)
+        # every rank estimates the same spectra of the whole host operator
+        spectra = spectra_mod.block_spectra_matfree(whole)
         block_gamma_w, block_eta_w = spectra_mod.derive_dynamics(spectra)
     if gram_solver == "auto":
         inv_bytes = num_blocks * op.p_pad * op.p_pad * dtype.itemsize
@@ -716,7 +789,11 @@ def prepare_matfree(
     synchronize(dev)
     setup_seconds = time.perf_counter() - t0
 
-    return MatrixFreePreparedSolver(
+    cls, placement_kw = MatrixFreePreparedSolver, {}
+    if mesh is not None:
+        cls = matfree_sharded.ShardedMatrixFreeSolver
+        placement_kw = {"mesh": mesh, "block_axes": block_axes}
+    return cls(
         op=op,
         method=method,
         gamma=gamma,
@@ -735,4 +812,5 @@ def prepare_matfree(
         block_gamma_weights=block_gamma_w,
         block_eta_weights=block_eta_w,
         block_spectra=spectra,
+        **placement_kw,
     )

@@ -13,8 +13,9 @@ form iterates all k systems at once — the projector application becomes
 The port covers every method of the reference: the consensus methods (apc,
 dapc) on the dense path and on the matrix-free path
 (``repro_torch.core.matfree``, picked by ``mode``), and the dgd/cgnr
-baselines on the dense path. Multi-device placement (``mesh=``) raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+baselines on the dense path. ``mesh=`` shards the matrix-free path over the
+ranks of a ``torch.distributed`` mesh (``repro_torch.core.matfree_sharded``);
+dense mesh solves are ``repro_torch.core.distributed.solve_sharded``.
 """
 from __future__ import annotations
 
@@ -45,9 +46,6 @@ METHODS = ("apc", "dapc", "dgd", "cgnr")
 # estimate below.
 MATFREE_AUTO_DENSITY = 0.01  # auto never goes matfree below 99% sparsity
 MATFREE_AUTO_BYTES = 64 * 1024 * 1024  # ... or when dense blocks fit easily
-
-_MESH_TODO = "ROADMAP Queue 1 item 8 (multi-device)"
-
 
 @dataclasses.dataclass(frozen=True)
 class PrepareConfig:
@@ -647,7 +645,9 @@ def prepare(
       * apc  — (A_j⁺, P_j) pseudoinverse + dense projector;
       * dgd  — the 1/λ_max(AᵀA) step size (power iteration), a float;
       * cgnr — nothing beyond the partition (zero-setup baseline).
-    ``mesh=`` raises NotImplementedError.
+    ``mesh=`` (a ``DeviceMesh``; every rank of it calls ``prepare``) returns
+    the sharded matrix-free solver and requires the matrix-free path: a
+    prepare that resolves the dense path raises ``ValueError``.
     """
     if isinstance(method, PrepareConfig):
         return prepare(A, **method.kwargs())
@@ -670,9 +670,14 @@ def prepare(
         raise ValueError(
             f"dynamics must be 'global' or 'per_block', got {dynamics!r}"
         )
-    if mesh is not None:
-        raise NotImplementedError(f"mesh= is not ported yet: {_MESH_TODO}")
-    dev = resolve_device(device)
+    if mesh is not None and path != "matfree":
+        raise ValueError(
+            "mesh= shards the matrix-free path; this prepare resolved "
+            f"path={path!r} (use mode='matfree', or solve_sharded for "
+            "dense mesh solves)"
+        )
+    # a mesh's ranks each compute on the mesh's device (prepare_matfree)
+    dev = device if mesh is not None else resolve_device(device)
     plan = (
         PartitionPlan.cost_aware(A, num_blocks)
         if partition == "cost_aware" else None
@@ -686,6 +691,7 @@ def prepare(
             gamma=gamma, eta=eta, inner_iters=inner_iters,
             inner_tol=inner_tol, use_kernels=use_kernels, balance=balance,
             gram_solver=gram_solver, warm_start=warm_start,
+            mesh=mesh, block_axes=block_axes,
             partition=partition, dynamics=dynamics, plan=plan,
             device=dev, **kw,
         )

@@ -19,17 +19,30 @@ report lines. It serves on the card unless ``--device cpu`` is given, and
 ``--kernels`` prepares the pooled systems for the hand-written CUDA
 kernels (on the CPU the kernel wrappers take their plain versions).
 
+``--mesh D`` serves through the sharded matrix-free solver on D ranks
+(``repro_torch.launch.mesh.run_ranks``): rank 0 runs the server and the
+replay, ranks > 0 follow its prepares and solves
+(``repro_torch.serving.mesh.serve_follower``). After a Poisson replay rank 0
+also solves the replayed columns directly on the mesh, at the served width,
+and prints a ``mesh: {...}`` JSON line: the ranks, the backend, the most
+device bytes one rank holds, the requests answered, rank 0's SpMM kernel
+launches over the replay, and the worst served column's distance from its
+direct solve as a share of its max|x|.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve_solver --requests 64 \\
       --rate 200 --max-batch 8 --max-wait-ms 5 --kernels
   PYTHONPATH=src python -m repro_torch.launch.serve_solver --trace drifting \\
       --sessions 4 --updates 16 --kernels
+  ... --mode matfree --mesh 4 --backend gloo   # 4 ranks on one card
   ... --device cpu              # the card is the default
 """
 from __future__ import annotations
 
 import argparse
 import asyncio
+import json
+import sys
 import time
 from collections import Counter
 
@@ -44,6 +57,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--method", default="dapc",
                     choices=("dapc", "apc", "cgnr", "dgd"))
     ap.add_argument("--epochs", type=int, default=60)
+    ap.add_argument("--gamma", type=float, default=None,
+                    help="consensus step γ of the pooled solvers (default: "
+                         "prepare's 1.0)")
+    ap.add_argument("--eta", type=float, default=None,
+                    help="consensus averaging η (default: prepare's 0.9)")
     ap.add_argument("--tol", type=float, default=1e-3,
                     help="per-column convergence tolerance on ||Ax-b||")
     ap.add_argument("--requests", type=int, default=64)
@@ -64,7 +82,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "nnz/memory estimate per system)")
     ap.add_argument("--mesh", type=int, default=0, metavar="D",
                     help="serve through the sharded matfree path over D "
-                         "devices: not ported yet, raises")
+                         "ranks, one process each (requires --mode matfree)")
+    ap.add_argument("--backend", default=None, choices=("gloo", "nccl"),
+                    help="process-group backend of --mesh (default: nccl on "
+                         "the card, gloo on the CPU)")
     ap.add_argument("--kernels", action="store_true",
                     help="prepare the pooled systems for the hand-written "
                          "CUDA kernels")
@@ -187,6 +208,7 @@ def _run_drifting(args, prob, system, server_kwargs, rng) -> None:
 
 
 def main(argv=None) -> None:
+    argv = sys.argv[1:] if argv is None else list(argv)
     ap = build_parser()
     args = ap.parse_args(argv)
     if args.mode == "matfree" and args.method not in ("apc", "dapc"):
@@ -195,15 +217,79 @@ def main(argv=None) -> None:
         ap.error("--fault-plan replays the poisson trace; session streams "
                  "have no per-request failure slots")
     if args.mesh:
-        from repro_torch.core.prepared import _MESH_TODO
-
-        raise NotImplementedError(f"--mesh is not ported yet: {_MESH_TODO}")
+        if args.mode != "matfree":
+            ap.error("--mesh shards the matfree path; pass --mode matfree")
+        if args.num_blocks % args.mesh:
+            ap.error(f"--num-blocks {args.num_blocks} must divide over "
+                     f"--mesh {args.mesh} devices")
 
     from repro_torch.device import resolve_device
+
+    dev = resolve_device(args.device)  # no card and no --device cpu: fail first
+    if args.mesh:
+        from repro_torch.launch.mesh import run_ranks
+
+        if args.kernels and dev.type == "cuda":
+            from repro_torch.kernels import _build
+
+            _build.build()  # once here, not once per rank
+        run_ranks(rank_main, args.mesh, args.backend, args.device, (argv,))
+        return
+    _serve(args)
+
+
+def _prepare_kwargs(args, mesh) -> dict:
+    # use_kernels, gamma and eta join the checkpoint key only when asked
+    # for, so a store the JAX package's command line wrote serves this one too
+    return dict(
+        method=args.method, num_blocks=args.num_blocks,
+        materialize_p=False, mode=args.mode, device=args.device,
+        **({"use_kernels": True} if args.kernels else {}),
+        **({"gamma": args.gamma} if args.gamma is not None else {}),
+        **({"eta": args.eta} if args.eta is not None else {}),
+        **({"mesh": mesh} if mesh is not None else {}),
+    )
+
+
+def _system(args):
+    """(problem, the matrix to register): the sparse COO for square systems
+    (the matfree path then never densifies); augmented systems are dense."""
     from repro_torch.sparse import make_problem
 
-    resolve_device(args.device)  # no card and no --device cpu: fail first
     prob = make_problem(n=args.n, m=args.m, seed=args.seed, dtype=np.float32)
+    return prob, (prob.coo if args.m == args.n else prob.A)
+
+
+def rank_main(rank: int, argv) -> None:
+    """One rank of ``--mesh D``: rank 0 serves the replay, the others follow
+    its prepares and solves until it stops them."""
+    from repro_torch.launch.mesh import make_host_local_mesh
+    from repro_torch.serving.mesh import serve_follower, stop_followers
+    from repro_torch.serving.queue import PreparedPool
+
+    args = build_parser().parse_args(argv)
+    mesh = make_host_local_mesh(args.mesh, device=args.device, backend=args.backend)
+    if rank == 0:
+        try:
+            _serve(args, mesh)
+        finally:
+            stop_followers(mesh)
+        return
+    pool = PreparedPool(max_size=args.pool_size, **_prepare_kwargs(args, mesh))
+    pool.register(_system(args)[1])
+    serve_follower(pool)
+
+
+def _pool_solve(server, fp, B, **solve_kwargs):
+    """A direct solve on the pooled solver of ``fp``, announced to a served
+    mesh's followers first."""
+    prep = server.pool.get(fp)
+    server.pool.announce_solve(fp, B, solve_kwargs)
+    return prep.solve(B, **solve_kwargs)
+
+
+def _serve(args, mesh=None) -> None:
+    prob, system = _system(args)
     rng = np.random.default_rng(args.seed + 1)
 
     from repro_torch.obs.metrics import MetricsRegistry, start_exposition
@@ -242,13 +328,7 @@ def main(argv=None) -> None:
         checkpoint=args.checkpoint_dir,
         metrics=registry,
         tracer=tracer,
-        # use_kernels joins the checkpoint key only when asked for, so a
-        # store the JAX package's command line wrote serves this one too
-        prepare_kwargs=dict(
-            method=args.method, num_blocks=args.num_blocks,
-            materialize_p=False, mode=args.mode, device=args.device,
-            **({"use_kernels": True} if args.kernels else {}),
-        ),
+        prepare_kwargs=_prepare_kwargs(args, mesh),
         **(
             {"solve_kwargs": {"block_history": True}}
             if args.block_history else {}
@@ -256,10 +336,6 @@ def main(argv=None) -> None:
         **({"faults": faults} if faults is not None else {}),
         **({"watchdog": watchdog} if watchdog is not None else {}),
     )
-    # register the sparse COO for square systems (the matfree path then
-    # never densifies); augmented systems are dense by nature
-    system = prob.coo if args.m == args.n else prob.A
-
     def finish_obs():
         if tracer is not None:
             if args.trace_out:
@@ -274,12 +350,13 @@ def main(argv=None) -> None:
             exposition.server_close()
 
     try:
-        _run_replay(args, prob, system, server_kwargs, rng, tracer)
+        _run_replay(args, prob, system, server_kwargs, rng, tracer, mesh)
     finally:
         finish_obs()
 
 
-def _run_replay(args, prob, system, server_kwargs, rng, tracer) -> None:
+def _run_replay(args, prob, system, server_kwargs, rng, tracer, mesh=None) -> None:
+    from repro_torch.kernels.spmm import ops as spmm_ops
     from repro_torch.serving.queue import SolveServer, replay_trace
 
     if args.trace == "drifting":
@@ -308,6 +385,7 @@ def _run_replay(args, prob, system, server_kwargs, rng, tracer) -> None:
             if tracer is not None:
                 tracer.clear()  # export the measured trace only
 
+            launches0 = dict(spmm_ops.launches)  # rank 0's, over the replay
             ticker = None
             if args.stats_every > 0:
 
@@ -327,6 +405,7 @@ def _run_replay(args, prob, system, server_kwargs, rng, tracer) -> None:
                 server, fp, rhs, gaps, return_exceptions=faulted
             )
             wall = time.perf_counter() - t0
+            launches = {k: v - launches0[k] for k, v in spmm_ops.launches.items()}
             if ticker is not None:
                 ticker.cancel()
             report = None
@@ -335,12 +414,20 @@ def _run_replay(args, prob, system, server_kwargs, rng, tracer) -> None:
                 # per-block residual trace the convergence report reads
                 from repro_torch.obs.convergence import convergence_report
 
-                prep = server.pool.get(fp)
-                diag = prep.solve(
-                    rhs[:, : min(4, rhs.shape[1])],
+                diag = _pool_solve(
+                    server, fp, rhs[:, : min(4, rhs.shape[1])],
                     num_epochs=args.epochs, block_history=True,
                 )
                 report = convergence_report(diag, tol=args.tol)
+            direct = None
+            if mesh is not None:
+                # the replayed columns solved directly on the mesh, at the
+                # served width and tol: what each served answer must match
+                direct = np.concatenate([
+                    _pool_solve(server, fp, rhs[:, i:i + args.max_batch],
+                                num_epochs=args.epochs, tol=args.tol).x
+                    for i in range(0, rhs.shape[1], args.max_batch)
+                ], axis=1)
             stats = server.stats()
             # watchdog verdicts land in the by-reason failure counter
             stats["watchdog_flags"] = int(
@@ -349,9 +436,11 @@ def _run_replay(args, prob, system, server_kwargs, rng, tracer) -> None:
                     "server_failures_total", reason="stalled"
                 )
             )
-            return stats, results, wall, server.pool.resident(), report
+            prep = server.pool.get(fp)
+            return (stats, results, wall, server.pool.resident(), report,
+                    direct, getattr(prep, "per_device_memory_bytes", None), launches)
 
-    stats, results, wall, resident, report = asyncio.run(serve())
+    stats, results, wall, resident, report, direct, per_device, launches = asyncio.run(serve())
 
     # under a fault plan, slot i may hold the structured failure instead of
     # a result — split, report the survivors, then summarize the failures
@@ -416,6 +505,25 @@ def _run_replay(args, prob, system, server_kwargs, rng, tracer) -> None:
             f"factors={entry['memory_bytes'] / 1e6:.2f}MB "
             f"solves={entry['num_solves']}"
         )
+    if direct is not None:
+        import torch.distributed as dist
+
+        worst = max(
+            float(np.abs(r.x - direct[:, i]).max() / np.abs(direct[:, i]).max())
+            for i, r in ok
+        )
+        print("mesh: " + json.dumps({
+            "ranks": args.mesh, "backend": dist.get_backend(),
+            "per_device_mb": per_device / 1e6, "requests": args.requests,
+            "answered": stats["requests"], "failed": len(failed),
+            "req_per_s": args.requests / wall,
+            "p50_ms": float(np.percentile(lat_ms, 50)),
+            "p99_ms": float(np.percentile(lat_ms, 99)),
+            "batches": stats["batches"], "launches_rank0": launches,
+            "worst_rel_diff_vs_direct": worst,
+            "bit_equal_vs_direct": sum(
+                bool(np.array_equal(r.x, direct[:, i])) for i, r in ok),
+        }))
     if report is not None:
         rates = report["rates"]
         print(

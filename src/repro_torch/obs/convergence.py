@@ -5,8 +5,8 @@
 APC's failure mode (arXiv 2304.10640): when block spectra are imbalanced,
 one block's slow projection contraction dominates eq. 9's spectral-radius
 bound (arXiv 1708.01413) while the aggregate still looks like smooth
-geometric decay. Both solve paths (dense consensus and matfree) record
-``history["block_residual_sq"]`` — per-epoch, per-block ``||A_j x̄ − b_j||²``
+geometric decay. The solve paths (dense consensus, matfree and sharded
+matfree) record ``history["block_residual_sq"]`` — per-epoch, per-block ``||A_j x̄ − b_j||²``
 — under ``solve(..., block_history=True)``, and this module turns that
 trace into decisions:
 
@@ -17,8 +17,12 @@ trace into decisions:
     per-block epochs-to-tolerance.
 
 Host-side numpy over the history a solve already returned.
-``audit_epoch_collectives`` and ``collect_reduces`` count the collectives
-of a multi-device epoch, which the port does not run yet.
+
+It also owns the collective audit of the sharded matrix-free solver:
+``audit_epoch_collectives`` runs a real solve with its ``Collectives``
+wrapper recording, and counts the calls each epoch made (``collect_reduces``
+flags each call by epoch membership), so any run — a test, a notebook, a
+serving deployment — can assert its per-epoch comms budget.
 """
 from __future__ import annotations
 
@@ -41,8 +45,8 @@ def block_residual_history(result) -> np.ndarray:
     if trace is None:
         raise ValueError(
             "history has no 'block_residual_sq' — run the solve with "
-            "block_history=True (consensus methods: the dense and the "
-            "matfree paths record it)"
+            "block_history=True (consensus methods: dense, matfree, and "
+            "sharded paths all record it)"
         )
     trace = np.asarray(trace)
     return trace[..., None] if trace.ndim == 2 else trace
@@ -122,23 +126,69 @@ def convergence_report(result, tol: float | None = None, plan=None) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# collective-count audit
+# collective-count audit (the calls a real solve makes; no wall clock)
 # ---------------------------------------------------------------------------
 
 
-def audit_epoch_collectives(*args, **kwargs) -> dict:
-    """The per-epoch collective budget of a sharded solve: the port has no
-    multi-device path yet, so there is nothing to audit."""
-    raise NotImplementedError(
-        "audit_epoch_collectives counts the collectives of the multi-device "
-        "solve, not ported yet: ROADMAP Queue 1 item 8 (multi-device)"
-    )
+def collect_reduces(calls) -> list:
+    """Recorded collective calls (a ``Recorder`` or its ``calls``) as
+    ``(in_epoch, op, numel)`` triples — numel in output elements. ``in_epoch``
+    flags the calls made inside the epoch loop, i.e. the ones an EPOCH pays."""
+    calls = getattr(calls, "calls", calls)
+    return [(epoch is not None, op, numel) for epoch, op, numel in calls]
 
 
-def collect_reduces(*args, **kwargs):
-    """The all-reduces of a sharded epoch's program: the port has no
-    multi-device path yet, so there is nothing to collect."""
-    raise NotImplementedError(
-        "collect_reduces lists the collectives of the multi-device solve, "
-        "not ported yet: ROADMAP Queue 1 item 8 (multi-device)"
+def audit_epoch_collectives(
+    prep,
+    b,
+    num_epochs: int = 8,
+    tol: float | None = None,
+    block_history: bool = False,
+    max_payload_elems: int | None = None,
+    max_ops: int | None = None,
+    bvecs=None,
+) -> dict:
+    """Run one cold sharded solve and account the collectives of its epochs.
+
+    Returns ``{"payload_elems", "ops", "found"}``: ``payload_elems`` / ``ops``
+    cover the calls made INSIDE one epoch (the most any epoch made;
+    every epoch makes the same calls), ``found`` every call of the solve as
+    ``collect_reduces`` triples. With ``max_payload_elems`` / ``max_ops`` set
+    it asserts the budget.
+
+    ``prep`` is a ``ShardedMatrixFreeSolver``, and every rank of its mesh
+    must make this call (it runs a solve); a single-device solver makes no
+    collectives and passes any budget. ``b`` is the whole right-hand side
+    — or pass this rank's block-partitioned ``bvecs`` directly. A solver
+    prepared with ``dynamics="per_block"`` is audited with the per-block
+    (γ_j, η_j) operands armed.
+    """
+    comm = getattr(prep, "comm", None)
+    if comm is None:
+        return {"payload_elems": 0, "ops": 0, "found": []}
+    if bvecs is None:
+        bvecs = prep.block_rhs(np.asarray(b))
+    per_block = (
+        getattr(prep, "dynamics", "global") == "per_block"
+        and getattr(prep, "block_eta_weights", None) is not None
     )
+    gamma_op, eta_op = prep._dynamics_operands(prep.gamma, prep.eta, per_block)
+    with comm.recording() as rec:
+        prep._epochs(
+            bvecs, gamma_op, eta_op, None, None, tol=tol, num_epochs=num_epochs,
+            inner_iters=prep.inner_iters, block_history=block_history,
+        )
+    epochs = [[c for c in rec.calls if c[0] == t] for t in range(num_epochs)]
+    payload = max((sum(c[2] for c in calls) for calls in epochs), default=0)
+    ops = max((len(calls) for calls in epochs), default=0)
+    in_epoch = epochs[0] if epochs else []
+    if max_payload_elems is not None and payload > max_payload_elems:
+        raise AssertionError(
+            f"epoch pays {payload} collective elements > budget "
+            f"{max_payload_elems} (ops: {in_epoch})"
+        )
+    if max_ops is not None and ops > max_ops:
+        raise AssertionError(
+            f"epoch pays {ops} collectives > budget {max_ops} (ops: {in_epoch})"
+        )
+    return {"payload_elems": payload, "ops": ops, "found": collect_reduces(rec)}

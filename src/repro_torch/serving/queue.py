@@ -80,11 +80,12 @@ import numpy as np
 
 from repro_torch.core import prepare
 from repro_torch.core.guard import STATUS_OK, Watchdog
-from repro_torch.core.prepared import _MESH_TODO, ColumnResult, PreparedSolver
+from repro_torch.core.prepared import ColumnResult, PreparedSolver
 from repro_torch.core.session import SESSION_METHODS, DriftPredictor
 from repro_torch.obs import clock as obs_clock
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import SERVER_TRACK, Tracer
+from repro_torch.serving import mesh as mesh_link
 from repro_torch.serving.checkpoint import CheckpointStore
 from repro_torch.serving.faults import (
     FaultInjector,  # noqa: F401  (re-exported: the server's faults= hook)
@@ -123,15 +124,6 @@ def matrix_fingerprint(A: np.ndarray | COOMatrix) -> str:
     return h.hexdigest()[:16]
 
 
-def _refuse_mesh(prepare_kwargs: dict) -> None:
-    """Multi-device registrations are not ported: raise at registration,
-    not later inside the solver thread."""
-    if prepare_kwargs.get("mesh") is not None:
-        raise NotImplementedError(
-            f"serving a mesh-backed system is not ported yet: {_MESH_TODO}"
-        )
-
-
 @dataclasses.dataclass
 class PoolStats:
     """Snapshot of the pool's registry counters (``PreparedPool.stats``
@@ -155,8 +147,12 @@ class PreparedPool:
     ``solve``/``num_solves`` contract; ``resident()`` reports which path
     each pooled system took) — register with ``mode="matfree"`` or a
     sparse enough matrix under ``mode="auto"`` to get the sparse kind.
-    A ``mesh=`` registration (the reference's mesh-backed solver) raises
-    ``NotImplementedError``: the multi-device path is not ported yet.
+    Registering with ``mode="matfree", mesh=...`` pools the MESH-backed
+    ``ShardedMatrixFreeSolver``: every coalesced batch solves on the mesh.
+    When the mesh spans several ranks, this pool lives on rank 0 and
+    announces each mesh-backed prepare and solve to the followers
+    (``repro_torch.serving.mesh``). Mesh-backed registrations skip the
+    checkpoint store and have no fallback rung.
 
     The registry keeps the raw (A, prepare-kwargs) per fingerprint so an
     evicted entry can be re-prepared on demand — eviction drops the
@@ -197,7 +193,6 @@ class PreparedPool:
         self.tracer = tracer
         self.faults = faults  # FaultInjector | None (None = zero cost)
         self.prepare_kwargs = dict(prepare_kwargs)
-        _refuse_mesh(self.prepare_kwargs)
         self._systems: dict[str, tuple[np.ndarray, dict]] = {}
         self._lru: OrderedDict[str, PreparedSolver] = OrderedDict()
         self._lock = threading.Lock()
@@ -255,7 +250,6 @@ class PreparedPool:
                     f"expected a 2D system matrix, got shape {A.shape}"
                 )
         kwargs = {**self.prepare_kwargs, **prepare_kwargs}
-        _refuse_mesh(kwargs)
         fp = matrix_fingerprint(A)
         with self._lock:
             self._systems.setdefault(fp, (A, kwargs))
@@ -263,6 +257,30 @@ class PreparedPool:
 
     def num_rows(self, fingerprint: str) -> int:
         return self._systems[fingerprint][0].shape[0]
+
+    def system(self, fingerprint: str) -> tuple:
+        """The registered ``(A, prepare_kwargs)`` of ``fingerprint``."""
+        with self._lock:
+            if fingerprint not in self._systems:
+                raise KeyError(
+                    f"unknown system {fingerprint!r}; call register(A) first"
+                )
+            return self._systems[fingerprint]
+
+    def _prepare(self, fingerprint: str, A, kwargs: dict):
+        """``prepare(A, **kwargs)`` after the fault hook; a mesh-backed
+        prepare is announced to the followers first."""
+        if self.faults is not None:
+            self.faults.on_prepare(fingerprint)
+        mesh_link.announce(kwargs, "prepare", fingerprint,
+                           kwargs=mesh_link.public_kwargs(kwargs))
+        return prepare(A, **kwargs)
+
+    def announce_solve(self, fingerprint: str, B, solve_kwargs: dict) -> None:
+        """Tell the followers of a mesh-backed system to make the solve
+        rank 0 makes next (nothing for a single-process system)."""
+        mesh_link.announce(self.system(fingerprint)[1], "solve", fingerprint,
+                           b=B, kwargs=solve_kwargs)
 
     def get(self, fingerprint: str) -> PreparedSolver:
         """The PreparedSolver for ``fingerprint`` — LRU hit, checkpoint
@@ -295,9 +313,7 @@ class PreparedPool:
                     )
         if prep is None:
             t0 = self.clock.now()
-            if self.faults is not None:
-                self.faults.on_prepare(fingerprint)
-            prep = prepare(A, **kwargs)
+            prep = self._prepare(fingerprint, A, kwargs)
             if self.tracer is not None:
                 self.tracer.span_at(
                     "pool.prepare", t0, self.clock.now(), cat="pool",
@@ -332,9 +348,7 @@ class PreparedPool:
                 )
             A, kwargs = self._systems[fingerprint]
         t0 = self.clock.now()
-        if self.faults is not None:
-            self.faults.on_prepare(fingerprint)
-        prep = prepare(A, **kwargs)
+        prep = self._prepare(fingerprint, A, kwargs)
         if self.tracer is not None:
             self.tracer.span_at(
                 "pool.refresh", t0, self.clock.now(), cat="pool",
@@ -354,7 +368,10 @@ class PreparedPool:
         ladder, or None when no degrade applies: an iterative ``pcg``
         Gram solver falls back to the ``direct`` pseudo-inverse, and a
         matfree registration falls back to the dense QR path. Every other
-        kwarg — ``device`` and ``use_kernels`` among them — carries over."""
+        kwarg — ``device`` and ``use_kernels`` among them — carries over.
+        Mesh-backed registrations have no single-host fallback."""
+        if kwargs.get("mesh") is not None:
+            return None
         if kwargs.get("gram_solver") == "pcg":
             return {**kwargs, "gram_solver": "direct"}
         if kwargs.get("mode") == "matfree":
@@ -387,9 +404,7 @@ class PreparedPool:
         if isinstance(A, COOMatrix) and fb.get("mode") == "dense":
             A = A.to_dense()  # last-resort densify: sturdiness over memory
         t0 = self.clock.now()
-        if self.faults is not None:
-            self.faults.on_prepare(fingerprint)
-        prep = prepare(A, **fb)
+        prep = self._prepare(fingerprint, A, fb)
         if self.tracer is not None:
             self.tracer.span_at(
                 "pool.fallback", t0, self.clock.now(), cat="pool",
@@ -1201,6 +1216,10 @@ class SolveServer:
                 # per-block diagnostics are consensus-only (cgnr/dgd have no
                 # block decomposition to attribute residuals to)
                 kwargs.pop("block_history")
+            # the followers of a mesh-backed system make the same solve
+            self.pool.announce_solve(
+                fingerprint, B, {"num_epochs": self.num_epochs, **kwargs}
+            )
             result = prep.solve(B, num_epochs=self.num_epochs, **kwargs)
             if actions and self.faults is not None:
                 cols = {s: i for i, s in enumerate(seqs)}

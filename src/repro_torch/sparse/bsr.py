@@ -18,7 +18,9 @@ module keeps the matrix blocked-sparse on the device:
     of every stored shard (a CSR of its nonzeros, derived, never saved),
     which the kernel path's products stream instead of the tiles: the
     transposed shards' form is the CSC of A_j's nonzeros, so the epoch's
-    fused pass needs no staged contributions and no scatter.
+    fused pass needs no staged contributions and no scatter. ``place``
+    keeps one rank's contiguous group of blocks of a host-built operator
+    (the sharded solver's placement, ``repro_torch.core.matfree_sharded``).
 
 The layout is built on the host by numpy code copied from the JAX package's
 ``sparse/bsr.py``, so both packages give equal index and data arrays, bit
@@ -46,8 +48,6 @@ from repro_torch.kernels.spmm.ref import spmm_fused_plain, spmm_plain
 from repro_torch.sparse.matrix import COOMatrix
 
 DEFAULT_BLOCK_SHAPE = (8, 8)
-
-_MESH_TODO = "ROADMAP Queue 1 item 8 (multi-device)"
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -397,6 +397,11 @@ class PartitionedBSR:
     ``to_arrays`` leaves them out and ``from_arrays(packed=True)`` rebuilds
     them. The matrix-free solver builds them on the card when it runs with
     kernels; ``nbytes`` counts them.
+
+    ``shard = (start, stop, J)`` marks a placed operator (``place``): it
+    holds blocks [start, stop) of a J-block operator, while ``shape``, ``p``
+    and ``p_pad`` stay the whole system's. ``block_rhs`` then returns this
+    shard's rows only.
     """
 
     fwd_indices: torch.Tensor  # (J, Rp, S) int32
@@ -414,6 +419,7 @@ class PartitionedBSR:
     fwd_packed: Packed | None = dataclasses.field(default=None, repr=False)
     tra_packed: Packed | None = dataclasses.field(default=None, repr=False)
     gram_packed: Packed | None = dataclasses.field(default=None, repr=False)
+    shard: tuple[int, int, int] | None = None  # placed: (start, stop, J)
 
     @property
     def device(self) -> torch.device:
@@ -421,7 +427,13 @@ class PartitionedBSR:
 
     @property
     def num_blocks(self) -> int:
+        """Blocks held here (a placed shard's own)."""
         return self.fwd_indices.shape[0]
+
+    @property
+    def global_blocks(self) -> int:
+        """Blocks of the whole operator (J, also for a placed shard)."""
+        return self.num_blocks if self.shard is None else self.shard[2]
 
     @property
     def num_cols(self) -> int:
@@ -444,7 +456,7 @@ class PartitionedBSR:
     def dense_bytes(self) -> int:
         """What the dense path's (J, p, n) ``blocks`` array would cost."""
         return int(
-            self.num_blocks * self.p_pad * self.shape[1]
+            self.global_blocks * self.p_pad * self.shape[1]
             * self.fwd_data.element_size()
         )
 
@@ -588,11 +600,52 @@ class PartitionedBSR:
 
     # -- mesh placement ------------------------------------------------------
 
-    def shard_spec(self, axes):
-        raise NotImplementedError(f"shard_spec is not ported yet: {_MESH_TODO}")
+    def shard_spec(self, mesh, axes: tuple[str, ...]) -> dict:
+        """Per present child array, the ``(start, stop)`` block range of every
+        shard of the mesh axes ``axes``, in shard order.
 
-    def place(self, mesh, axes):
-        raise NotImplementedError(f"place is not ported yet: {_MESH_TODO}")
+        Every child stacks its per-block shards on axis 0, so each gets the
+        same contiguous ranges of J/D blocks (the reference's
+        ``PartitionSpec(axes)`` on axis 0). Raises unless D divides J.
+        """
+        from repro_torch.core.matfree_sharded import mesh_block_devices
+
+        D = mesh_block_devices(mesh, tuple(axes))
+        J = self.global_blocks
+        if J % D:
+            raise ValueError(
+                f"num_blocks={J} not divisible over the {D} devices of mesh "
+                f"axes {tuple(axes)}"
+            )
+        per = J // D
+        ranges = [(d * per, (d + 1) * per) for d in range(D)]
+        return {
+            name: ranges for name in _ARRAY_FIELDS if getattr(self, name) is not None
+        }
+
+    def place(self, mesh, axes: tuple[str, ...], device=None) -> "PartitionedBSR":
+        """This rank's contiguous group of J/D blocks of every child array,
+        moved to ``device`` (``None``: the mesh's device on this rank).
+
+        Build the operator in host memory and place it: only this rank's
+        blocks reach the card. Packed forms, when the source has them, are
+        rebuilt for the shard on the device.
+        """
+        from repro_torch.core.collectives import mesh_axes_group
+        from repro_torch.core.matfree_sharded import mesh_device
+
+        spec = self.shard_spec(mesh, axes)
+        start, stop = next(iter(spec.values()))[mesh_axes_group(mesh, tuple(axes)).index]
+        dev = mesh_device(mesh) if device is None else resolve_device(device)
+        kept = {
+            name: getattr(self, name)[start:stop].to(dev)
+            for name in spec
+        }
+        placed = dataclasses.replace(
+            self, **kept, fwd_packed=None, tra_packed=None, gram_packed=None,
+            shard=(start, stop, self.global_blocks),
+        )
+        return placed.with_packed() if self.fwd_packed is not None else placed
 
     # -- balanced-layout translation -----------------------------------------
 
@@ -771,8 +824,12 @@ class PartitionedBSR:
 
     def _scatter_rhs(self, b: np.ndarray, dest: np.ndarray) -> torch.Tensor:
         """Rows of ``b`` (m, k) placed at ``dest`` of a zero (J·p_pad, k)
-        host array in the operator's dtype, then moved to the device."""
+        host array in the operator's dtype; the blocks held here (a placed
+        shard's own) move to the device."""
         dtype = torch.empty(0, dtype=self.fwd_data.dtype).numpy().dtype
-        out = np.zeros((self.num_blocks * self.p_pad, b.shape[1]), dtype)
+        out = np.zeros((self.global_blocks * self.p_pad, b.shape[1]), dtype)
         out[dest] = b
-        return _tensor(out.reshape(self.num_blocks, self.p_pad, -1), self.device)
+        out = out.reshape(self.global_blocks, self.p_pad, -1)
+        if self.shard is not None:
+            out = out[self.shard[0]:self.shard[1]]
+        return _tensor(out, self.device)

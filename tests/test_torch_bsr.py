@@ -200,8 +200,35 @@ def test_block_ell_matches_reference():
     _close(port.matmul(torch.from_numpy(x)), ref.matmul(jnp.asarray(x)))
 
 
+class _TwoShards:
+    """The parts of a two-rank ``("data",)`` mesh that ``shard_spec`` reads."""
+
+    mesh_dim_names = ("data",)
+
+    def size(self, dim=None):
+        return 2
+
+
 def test_mesh_placement_not_ported():
-    port = PartitionedBSR.from_coo(generate_schenk_like(32, sparsity=0.9, seed=1), 2, device="cpu")
-    for call in (lambda: port.shard_spec(("data",)), lambda: port.place(None, ("data",))):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            call()
+    """Mesh placement, ported: ``shard_spec`` gives every child the block
+    ranges of each shard, and ``place`` on a one-rank mesh keeps every block,
+    equal to the reference's operator bit for bit, with this shard's RHS."""
+    from test_torch_matfree_sharded import one_rank_mesh
+
+    kw = dict(with_transpose=True, with_gram=True, balance=True)
+    port = PartitionedBSR.from_coo(generate_schenk_like(32, sparsity=0.9, seed=1), 2,
+                                   device="cpu", **kw)
+    ref = jbsr.PartitionedBSR.from_coo(jgen(32, sparsity=0.9, seed=1), 2, **kw)
+    spec = port.shard_spec(_TwoShards(), ("data",))
+    assert set(spec) == {name for name in tbsr._ARRAY_FIELDS if getattr(port, name) is not None}
+    assert all(ranges == [(0, 1), (1, 2)] for ranges in spec.values())
+    with pytest.raises(ValueError, match="divisible"):
+        PartitionedBSR.from_coo(generate_schenk_like(32, sparsity=0.9, seed=1), 3,
+                                device="cpu").shard_spec(_TwoShards(), ("data",))
+    with one_rank_mesh() as mesh:
+        placed = port.place(mesh, ("data",), device="cpu")
+    assert placed.shard == (0, 2, 2) and placed.global_blocks == 2
+    for name in spec:
+        np.testing.assert_array_equal(getattr(placed, name).numpy(), np.asarray(getattr(ref, name)))
+    b = np.arange(32, dtype=np.float32)
+    np.testing.assert_array_equal(placed.block_rhs(b).numpy(), np.asarray(ref.block_rhs(b)))

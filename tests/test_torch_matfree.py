@@ -281,6 +281,14 @@ def test_float64_and_host_syncs(problem):
 
 
 def test_stubs_of_later_slices(problem):
-    prob, coo, _, _ = problem
-    with pytest.raises(NotImplementedError, match="item 8"):
-        prepare_matfree(coo, mesh=object(), device="cpu")
+    """``mesh=`` (the multi-device slice, once a stub here) returns the
+    sharded solver; on one rank it solves as the unsharded one, bit for bit."""
+    from test_torch_matfree_sharded import one_rank_mesh
+
+    prob, coo, B, _ = problem
+    single = prepare_matfree(coo, num_blocks=J, device="cpu")
+    with one_rank_mesh() as mesh:
+        sharded = prepare_matfree(coo, num_blocks=J, mesh=mesh, device="cpu")
+        assert sharded.path == "matfree_sharded" and sharded.num_blocks == J
+        got = sharded.solve(B, num_epochs=EPOCHS)
+    np.testing.assert_array_equal(got.x, single.solve(B, num_epochs=EPOCHS).x)

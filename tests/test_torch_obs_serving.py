@@ -31,6 +31,7 @@ from repro.obs import metrics as jmetrics
 from repro.obs import trace as jtrace
 from repro.serving import queue as jqueue
 from repro_torch import obs as tobs
+from repro_torch.core import prepare as tprepare
 from repro_torch.obs import clock as tclock
 from repro_torch.obs import metrics as tmetrics
 from repro_torch.obs import trace as ttrace
@@ -235,21 +236,49 @@ def test_spans_round_trip_both_formats_across_packages(tmp_path):
     assert tracer.spans() == []
 
 
-# -- the collective audit belongs to the multi-device slice --------------------
+# -- the collective audit and sharded serving (the multi-device slice) ---------
 
 
 @pytest.mark.parametrize("name", ["audit_epoch_collectives", "collect_reduces"])
 def test_collective_audit_is_an_item_8_stub(problem, name):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        getattr(tobs, name)(None, problem.b)
+    """The audit, once a stub: a sharded solve's epochs pay one n·k
+    all-reduce, counted from the calls it makes."""
+    from test_torch_matfree_sharded import one_rank_mesh
+
+    n = problem.A.shape[1]
+    with one_rank_mesh() as mesh:
+        prep = tprepare(problem.A, mode="matfree", mesh=mesh, **PORT_KW)
+        if name == "audit_epoch_collectives":
+            audit = tobs.audit_epoch_collectives(prep, problem.b, num_epochs=3)
+            assert (audit["ops"], audit["payload_elems"]) == (1, n)
+        else:
+            with prep.comm.recording() as rec:
+                prep.solve(problem.b, num_epochs=3)
+            calls = tobs.collect_reduces(rec)
+            assert [c for c in calls if c[0]] == [(True, "all_reduce_sum", n)] * 3
 
 
 def test_sharded_serving_is_an_item_8_stub(problem):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tqueue.SolveServer(prepare_kwargs=dict(PORT_KW, mesh=object()))
-    pool = tqueue.PreparedPool(**PORT_KW)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        pool.register(problem.A, mesh=object())
+    """A mesh registration, once refused: the pool holds the sharded solver
+    and the server answers as a direct sharded solve."""
+    from test_torch_matfree_sharded import one_rank_mesh
+
+    with one_rank_mesh() as mesh:
+        kw = dict(PORT_KW, mesh=mesh, mode="matfree")
+
+        async def main():
+            async with tqueue.SolveServer(max_batch=2, max_wait_ms=2.0, num_epochs=20,
+                                          prepare_kwargs=kw) as server:
+                fp = server.register(problem.A)
+                return await server.submit(fp, problem.b), server.pool.resident()
+
+        result, resident = _run(main())
+        assert resident[0]["path"] == "matfree_sharded"
+        want = tprepare(problem.A, **kw).solve(problem.b[:, None], num_epochs=20).x[:, 0]
+        np.testing.assert_allclose(result.x, want, atol=1e-5)
+        pool = tqueue.PreparedPool(**PORT_KW)
+        fp = pool.register(problem.A, mesh=mesh, mode="matfree")
+        assert pool.system(fp)[1]["mesh"] is mesh and not pool.has_fallback(fp)
 
 
 # -- serving stats ------------------------------------------------------------

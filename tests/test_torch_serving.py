@@ -640,5 +640,9 @@ def test_serve_solver_cli_report_lines(capsys):
                                 "replayed 2 drifting streams x 4 updates", "epochs/update: cold(first)=",
                                 "batches: "]):
         assert line.startswith(head), (line, head)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        serve_solver.main(["--mode", "matfree", "--mesh", "2", "--device", "cpu"])
+    # --mesh (the multi-device slice; tests/test_torch_mesh_ranks.py serves
+    # through it) checks its arguments as the reference does, before any rank
+    for bad in (["--mesh", "2"], ["--mode", "matfree", "--num-blocks", "8", "--mesh", "3"]):
+        with pytest.raises(SystemExit):
+            serve_solver.main(bad + ["--device", "cpu"])
+    assert "--mesh" in capsys.readouterr().err

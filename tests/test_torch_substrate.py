@@ -1,8 +1,8 @@
 """The port's host substrate against the JAX package: mixers, problem
 generation, Matrix Market IO, partition plans and spectra must agree
 exactly; plus the port's rules — device resolution without a CPU fallback,
-the NotImplementedError stubs of later slices, and the import guard that
-keeps jax and ``repro`` out of ``repro_torch``."""
+the multi-device entry points that were stubs of a later slice, and the
+import guard that keeps jax and ``repro`` out of ``repro_torch``."""
 import ast
 import os
 import subprocess
@@ -171,35 +171,36 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-# -- later slices raise, never take another path -----------------------------
+# -- the multi-device entry points (once stubs of a later slice) --------------
 
 
 def test_not_implemented_stubs():
+    """Every entry point that raised before the multi-device slice now takes
+    its path: ``mesh=`` prepares the sharded solver (and refuses the dense
+    path as the reference does), the collective audit counts, a server pools
+    a mesh registration, and ``serve_solver --mesh`` checks its arguments."""
     from repro_torch import obs
-    from repro_torch.core import prepare
+    from repro_torch.core import ShardedMatrixFreeSolver, prepare
     from repro_torch.launch import serve_solver
     from repro_torch.serving import SolveServer
 
+    from test_torch_matfree_sharded import one_rank_mesh
+
     prob = tio.make_problem(n=16, m=64, seed=0, dtype=np.float32)
     big = tio.make_problem(n=256, m=256, seed=0, dtype=np.float32)
-    # every solve method, sessions, the watchdog, the per-block diagnostics
-    # and serving run now (tests/test_torch_{matfree,baselines,session,guard,
-    # serving}.py); mesh placement, sharded serving and the collective audit
-    # belong to the multi-device slice
-    cases = [
-        (lambda: prepare(big.coo, num_blocks=4, mode="matfree", mesh=object(), device="cpu"),
-         "item 8"),
-        (lambda: prepare(prob.A, num_blocks=4, mesh=object(), device="cpu"), "multi-device"),
-        (lambda: obs.audit_epoch_collectives(None, prob.b), "item 8"),
-        (lambda: obs.collect_reduces(None), "item 8"),
-        (lambda: SolveServer(prepare_kwargs=dict(num_blocks=4, mesh=object(), device="cpu")),
-         "item 8"),
-        (lambda: serve_solver.main(["--mode", "matfree", "--mesh", "4", "--device", "cpu"]),
-         "item 8"),
-    ]
-    for call, item in cases:
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    with one_rank_mesh() as mesh:
+        sharded = prepare(big.coo, num_blocks=4, mode="matfree", mesh=mesh, device="cpu")
+        assert isinstance(sharded, ShardedMatrixFreeSolver)
+        with pytest.raises(ValueError, match="matfree"):
+            prepare(prob.A, num_blocks=4, mesh=mesh, device="cpu")
+        audit = obs.audit_epoch_collectives(sharded, big.b, num_epochs=2)
+        assert (audit["ops"], audit["payload_elems"]) == (1, 256)
+        assert obs.collect_reduces(audit["found"][:0]) == []
+        server = SolveServer(prepare_kwargs=dict(num_blocks=4, mode="matfree", mesh=mesh,
+                                                 device="cpu"))
+        assert server.pool.prepare_kwargs["mesh"] is mesh
+    with pytest.raises(SystemExit):
+        serve_solver.main(["--mesh", "4", "--device", "cpu"])  # needs --mode matfree
     prep = prepare(prob.A, num_blocks=4, device="cpu")
     arrays, meta = prep.to_state()
     with pytest.raises(ValueError, match="matrix-free"):
