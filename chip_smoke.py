@@ -97,10 +97,28 @@
    serving command line's Poisson trace through ``serve_solver --mesh 4
    --backend gloo`` (every request answered, within 2.5e-4·max|x| of a
    direct sharded solve); then times the SpMM kernels on a rank's shard;
-12. prints the kernel table as one JSON line (with a row per kernel of one
-   warm session update, of one served batch and of the multi-device runs,
-   carrying the measured case of the same shapes), the card line again, and
-   the ``{"ok": true, "device": ...}`` line last.
+12. runs the model stack's serving path (``repro_torch.models``,
+   ``serving.decode``, ``launch.serve``): the four dense archs' reduced
+   configs at 3 layers on the card against the port's CPU path from the
+   same weights (prefill logits within 1e-4·max, a 4-step decode
+   continuation within 2e-2·scale); granite-3-2b at full width (40 layers,
+   d_model 2048, 2.53e9 f32 parameters from a CUDA ``torch.Generator``): a
+   1 x 16 prompt and 8 decode steps on the card against the CPU (1e-3 /
+   2e-2), the prefill continuation against token-by-token decode on the
+   card (2e-2·scale), greedy ``generate`` at batch 4, prompt 128, 32 new
+   tokens timed (prefill, decode per step, tokens/s, peak memory) beside the
+   cost model's bounds, one decode step profiled, and ``python -m
+   repro_torch.launch.serve`` at that size as a subprocess; then the linear
+   probe (``launch.linear_probe``): the reference's reduced configuration at
+   its MSE < 1e-4 gate, and the full-width probe (features (8192, 2048), J =
+   8 wide blocks) with the kernels, counted around the run (1 trisolve, 150
+   consensus updates) and held against the kernels-off solve (1e-4·max(1,
+   max|x|)); the two kernels against their plain versions at the probe's
+   shapes; prints a ``{"model": ...}`` summary line;
+13. prints the kernel table as one JSON line (with a row per kernel of one
+   warm session update, of one served batch, of the multi-device runs and
+   of the probe's solve, carrying the measured case of the same shapes), the
+   card line again, and the ``{"ok": true, "device": ...}`` line last.
 
 The kernel cases are timed twice: with CUDA events around
 back-to-back calls (``ms``, which includes the Python wrapper's host cost
@@ -197,15 +215,19 @@ MESH_RELERR_GATE = 2.5e-4
 MESH_FRACTION_GATE = 1.15 / MESH_RANKS
 DENSE_SHARDED_ATOL, DENSE_2D_ATOL = 1e-5, 1e-4
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and the highest dense
-# FLOP/s for each input type (f32 outside the tensor cores; f64 and bf16 on
-# them), so that bound_ms is the least time the card could take. The
-# consensus update runs its f32 products on the tensor cores as three TF32
-# products (3xTF32, 495 TFLOP/s each), so its f32 operations count at a third
-# of the TF32 rate; the kernels that still run f32 on CUDA cores keep 67.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "float64": 67e12, "bfloat16": 989e12,
-              "float32_3xtf32": 495e12 / 3}
+# phase 12: the model stack's serving path at granite-3-2b's full width
+# (src/repro_torch/configs/granite_3_2b.py: 40 layers, d_model 2048, 32 heads,
+# 8 KV heads, d_ff 8192, vocab 49155), f32 weights, bf16 KV cache; the
+# reduced parity runs the four dense archs at 3 layers. Gates: prefill logits
+# card against CPU at 1e-4·max|logits| reduced, 1e-3 at full width (40 f32
+# layers on two devices' gemms); decode continuations at the reference's
+# 2e-2·scale (tests/test_model_properties.py:116)
+MODEL_ARCH = "granite-3-2b"
+MODEL_PARITY_ARCHS = ("granite-3-2b", "granite-3-8b", "gemma-7b", "qwen1.5-32b")
+MODEL_PREFILL_GATE = {"reduced": 1e-4, "full": 1e-3}
+MODEL_DECODE_GATE = 2e-2
+GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 128, 32
+PROBE_EPOCHS = 150
 
 TRISOLVE_SRC = "src/repro_torch/csrc/trisolve.cu"
 PROJECT_SRC = "src/repro_torch/csrc/project.cu"
@@ -264,8 +286,13 @@ def device_ms(torch, fn, iters: int) -> float:
 
 
 def bound(nbytes: float, flops: float, rate: str) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[rate] * 1e3
+    """The least milliseconds the card could take: bytes over its HBM rate or
+    operations over its peak for ``rate``, whichever is larger, from the H100
+    SXM data-sheet peaks in ``repro_torch.models.costs``."""
+    from repro_torch.models import costs
+
+    t_bytes = nbytes / costs.HBM_BW * 1e3
+    t_ops = flops / costs.PEAK_FLOPS_BY_TYPE[rate] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -274,24 +301,13 @@ def check(ok: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
-def kernel_phase(torch, trisolve_ops, trisolve_ref, project_ops, project_ref, cu_ref):
-    """Each kernel against its plain version at the main path's shapes."""
+def kernel_cases(torch, trisolve_ops, trisolve_ref, project_ops, project_ref, cu_ref, gen,
+                 results):
+    """The dense kernels' case runners: each holds one kernel against its
+    plain version on the card (vectors drawn from ``gen``), times the
+    kernel, the plain version and the library call, and adds a row to
+    ``results``."""
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
-    results = {}
-
-    def factors(J, rows, cols, dtype, tall):
-        """W and R of the reduced QR of Gaussian blocks, as prepare() makes
-        them: tall blocks (rows >= cols) give R (cols, cols), wide ones are
-        factored through their transpose and give R (rows, rows)."""
-        a = torch.randn(J, rows, cols, generator=gen, device=dev, dtype=torch.float64)
-        if tall:
-            q, r = torch.linalg.qr(a, mode="reduced")
-            w = q
-        else:
-            q, r = torch.linalg.qr(a.mT, mode="reduced")
-            w = q.mT
-        return w.to(dtype).contiguous(), r.to(dtype).contiguous()
 
     def tri_case(name, J, n, k, dtype, lower, transpose, r):
         y = torch.randn(J, n, k, generator=gen, device=dev, dtype=dtype)
@@ -383,6 +399,31 @@ def kernel_phase(torch, trisolve_ops, trisolve_ref, project_ops, project_ref, cu
               f"{dev_ms:.4f})  plain {plain_ms:.4f} ms  library {lib:.4f} ms (device "
               f"{lib_dev:.4f})  bound {b_ms:.4f} ms ({b_by})")
         check(err <= tol, f"{name}: max error {err} above {tol}")
+
+    return tri_case, proj_case
+
+
+def kernel_phase(torch, trisolve_ops, trisolve_ref, project_ops, project_ref, cu_ref):
+    """Each kernel against its plain version at the main path's shapes."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    results = {}
+
+    def factors(J, rows, cols, dtype, tall):
+        """W and R of the reduced QR of Gaussian blocks, as prepare() makes
+        them: tall blocks (rows >= cols) give R (cols, cols), wide ones are
+        factored through their transpose and give R (rows, rows)."""
+        a = torch.randn(J, rows, cols, generator=gen, device=dev, dtype=torch.float64)
+        if tall:
+            q, r = torch.linalg.qr(a, mode="reduced")
+            w = q
+        else:
+            q, r = torch.linalg.qr(a.mT, mode="reduced")
+            w = q.mT
+        return w.to(dtype).contiguous(), r.to(dtype).contiguous()
+
+    tri_case, proj_case = kernel_cases(torch, trisolve_ops, trisolve_ref, project_ops,
+                                       project_ref, cu_ref, gen, results)
 
     f32, f64 = torch.float32, torch.float64
     w_tall, r_tall = factors(2, 4654, 2327, f32, tall=True)
@@ -490,16 +531,11 @@ def main_path_run(torch, launch_solve, ops, n, m, J, k, gate):
     return out
 
 
-def profile_solve(torch, prep, b, x_ref, epochs, label="one warm solve", **solve_kw) -> dict:
-    """Where one warm solve's time goes: device time by kernel and the
-    device's busy share of the host wall time, from torch.profiler. Prints
-    the eight largest rows and every row of the epoch's fused pass.
-    ``solve_kw`` go to the solve (a session's warm start and tol)."""
+def device_rows(prof) -> list:
+    """(device µs, count, name) of every kernel a torch.profiler run saw,
+    largest first."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall = prep.solve(b, num_epochs=epochs, x_ref=x_ref, **solve_kw).wall_seconds
     rows = []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -509,6 +545,19 @@ def profile_solve(torch, prep, b, x_ref, epochs, label="one warm solve", **solve
             dev_us = e.self_cuda_time_total
         rows.append((dev_us, e.count, e.key))
     rows.sort(reverse=True)
+    return rows
+
+
+def profile_solve(torch, prep, b, x_ref, epochs, label="one warm solve", **solve_kw) -> dict:
+    """Where one warm solve's time goes: device time by kernel and the
+    device's busy share of the host wall time, from torch.profiler. Prints
+    the eight largest rows and every row of the epoch's fused pass.
+    ``solve_kw`` go to the solve (a session's warm start and tol)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall = prep.solve(b, num_epochs=epochs, x_ref=x_ref, **solve_kw).wall_seconds
+    rows = device_rows(prof)
     busy_ms = sum(r[0] for r in rows) / 1e3
     print(f"    profile of {label}: wall {wall * 1e3:.3f} ms, device busy "
           f"{busy_ms:.3f} ms ({100 * busy_ms / (wall * 1e3):.1f}%), "
@@ -1064,7 +1113,6 @@ def profile_served_batch(torch, loop, server, fp, B):
     the host wall of the batch, from submit to the last answer."""
     import asyncio
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     async def batch():
@@ -1074,15 +1122,7 @@ def profile_served_batch(torch, loop, server, fp, B):
         t0 = time.perf_counter()
         results = loop.run_until_complete(batch())
         wall = time.perf_counter() - t0
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = e.self_cuda_time_total
-        rows.append((dev_us, e.count, e.key))
-    rows.sort(reverse=True)
+    rows = device_rows(prof)
     busy_ms = sum(r[0] for r in rows) / 1e3
     print(f"    profile of one served batch of {B.shape[1]}: wall {wall * 1e3:.3f} ms (solve "
           f"{results[0].solve_ms:.3f} ms), device busy {busy_ms:.3f} ms "
@@ -1627,6 +1667,239 @@ def mesh_phase(torch, ops, prepare, mf_small, mf_big, card):
     return {"d1": d1, "d4": d4, "served": served, "shards": shards}
 
 
+def dense_layers(cfg, n):
+    """``cfg`` cut to ``n`` dense layers (depth only; every width kept)."""
+    return dataclasses.replace(cfg, num_layers=n, layer_types=("dense",) * n)
+
+
+def same_weights(transformer, model, device):
+    """A model on ``device`` holding ``model``'s weights."""
+    out = transformer.Transformer(model.cfg, device)
+    out.load_state_dict(model.state_dict())
+    return out
+
+
+def continuation(torch, transformer, model, toks, plen):
+    """Prefill ``toks[:, :plen]``, then decode the rest teacher-forced: the
+    prefill logits and the decode steps' logits, first vocab_size columns,
+    on the host."""
+    cfg = model.cfg
+    v = cfg.vocab_size
+    toks = toks.to(model.device)
+    logits, cache = transformer.prefill(model, toks[:, :plen], cfg, toks.shape[1])
+    steps = [transformer.decode_step(model, cache, toks[:, i:i + 1], i, cfg)[0][:, 0, :v]
+             for i in range(plen, toks.shape[1])]
+    return logits[..., :v].cpu(), torch.stack(steps, 1).cpu()
+
+
+def token_by_token(torch, transformer, model, toks, first):
+    """Decode every token from an empty cache; logits of steps >= first."""
+    cfg = model.cfg
+    toks = toks.to(model.device)
+    cache = transformer.init_cache(cfg, toks.shape[0], toks.shape[1], device=model.device)
+    steps = []
+    for i in range(toks.shape[1]):
+        logits, cache = transformer.decode_step(model, cache, toks[:, i:i + 1], i, cfg)
+        if i >= first:
+            steps.append(logits[:, 0, :cfg.vocab_size])
+    return torch.stack(steps, 1).cpu()
+
+
+def rel_err(got, want) -> float:
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+def model_parity_reduced(torch, get_config, reduced_config, transformer):
+    """The four dense archs' reduced configs at 3 layers on the card against
+    the port's CPU path from the same weights (TF32 off)."""
+    out = {}
+    for arch in MODEL_PARITY_ARCHS:
+        cfg = dense_layers(reduced_config(get_config(arch)), 3)
+        cpu = transformer.init_params(cfg, torch.Generator().manual_seed(0))
+        card = same_weights(transformer, cpu, torch.device("cuda"))
+        toks = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 12)))
+        (pre_c, dec_c), (pre_g, dec_g) = (continuation(torch, transformer, m, toks, 8)
+                                          for m in (cpu, card))
+        e_pre, e_dec = rel_err(pre_g, pre_c), rel_err(dec_g, dec_c)
+        print(f"  {arch} (reduced, 3 layers): prefill logits {e_pre:.3e}·max (gate "
+              f"{MODEL_PREFILL_GATE['reduced']:g}), 4 decode steps {e_dec:.3e}·max (gate "
+              f"{MODEL_DECODE_GATE:g})")
+        check(e_pre <= MODEL_PREFILL_GATE["reduced"], f"{arch} reduced prefill: {e_pre}")
+        check(e_dec <= MODEL_DECODE_GATE, f"{arch} reduced decode: {e_dec}")
+        out[arch] = {"prefill_rel_err": e_pre, "decode_rel_err": e_dec}
+    return out
+
+
+def model_serving_phase(torch, mods, card):
+    """granite-3-2b at full width on the card: parity with the CPU path from
+    the same weights, the prefill continuation, greedy generation timed
+    (prefill, decode per step, tokens/s, peak memory) and one decode step
+    profiled, beside the bounds of the port's cost model; then the serving
+    command line as a subprocess."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    transformer, costs, decode = mods.transformer, mods.costs, mods.decode
+    dev = torch.device("cuda")
+    cfg = mods.get_config(MODEL_ARCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = transformer.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"  {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, {n_params:,} "
+          f"parameters ({weight_bytes / 1e9:.2f} GB f32) drawn on the card in {init_s:.2f} s")
+    check(n_params == cfg.param_count() == 2_534_049_792, f"parameter count {n_params}")
+
+    # card against the CPU from the same weights: batch 1, 16-token prompt, 8 decode steps
+    toks = torch.randint(0, cfg.vocab_size, (1, 24), generator=torch.Generator().manual_seed(1))
+    t0 = time.perf_counter()
+    pre_g, dec_g = continuation(torch, transformer, model, toks, 16)
+    card_s = time.perf_counter() - t0
+    cpu = same_weights(transformer, model, torch.device("cpu"))
+    t0 = time.perf_counter()
+    pre_c, dec_c = continuation(torch, transformer, cpu, toks, 16)
+    cpu_s = time.perf_counter() - t0
+    del cpu
+    e_pre, e_dec = rel_err(pre_g, pre_c), rel_err(dec_g, dec_c)
+    td = token_by_token(torch, transformer, model, toks, 16)
+    e_cont = rel_err(dec_g, td)
+    print(f"  card vs CPU (1 x 16 prompt + 8 decode steps; card {card_s:.2f} s, CPU "
+          f"{cpu_s:.2f} s): prefill logits {e_pre:.3e}·max (gate {MODEL_PREFILL_GATE['full']:g}),"
+          f" decode {e_dec:.3e}·max (gate {MODEL_DECODE_GATE:g}); prefill continuation vs "
+          f"token-by-token decode on the card {e_cont:.3e}·max (gate {MODEL_DECODE_GATE:g})")
+    check(e_pre <= MODEL_PREFILL_GATE["full"], f"full-width prefill card vs CPU: {e_pre}")
+    check(e_dec <= MODEL_DECODE_GATE, f"full-width decode card vs CPU: {e_dec}")
+    check(e_cont <= MODEL_DECODE_GATE, f"full-width prefill continuation: {e_cont}")
+
+    # generate at batch 4, prompt 128, 32 new tokens
+    prompts = torch.randint(0, cfg.vocab_size, (GEN_BATCH, GEN_PROMPT),
+                            generator=torch.Generator().manual_seed(2)).to(dev)
+    warm = decode.generate(model, cfg, prompts, max_new=GEN_NEW)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out_pf = decode.generate(model, cfg, prompts, max_new=GEN_NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(tuple(out_pf.shape) == (GEN_BATCH, GEN_NEW), f"generate shape {tuple(out_pf.shape)}")
+    check(bool((out_pf >= 0).all() and (out_pf < cfg.vocab_size).all()), "token ids out of range")
+    max_seq = GEN_PROMPT + GEN_NEW
+    step = decode.prepared_serve_step(cfg)
+    prefill_ms, decode_ms = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = transformer.prefill(model, prompts, cfg, max_seq)
+        tok = torch.argmax(logits[:, -1:, :cfg.vocab_size], dim=-1)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        for t in range(GEN_PROMPT, max_seq - 1):
+            tok, caches = step(model, caches, tok, t)
+        torch.cuda.synchronize()
+        decode_ms.append((time.perf_counter() - t0) * 1e3 / (GEN_NEW - 1))
+    out_td = decode.generate(model, cfg, prompts, max_new=GEN_NEW, use_prefill=False)
+    share = float((out_td == out_pf).float().mean())
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(model, caches, tok, max_seq - 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = device_rows(prof)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    weight_ms = weight_bytes / costs.HBM_BW * 1e3
+    prefill_flops = costs.forward_flops(cfg, GEN_BATCH, GEN_PROMPT, "prefill")
+    prefill_bound_ms = prefill_flops / costs.PEAK_FLOPS_F32 * 1e3
+    tok_s = GEN_BATCH * GEN_NEW / gen_s
+    print(f"  generate (batch {GEN_BATCH}, prompt {GEN_PROMPT}, {GEN_NEW} new) on {card}: "
+          f"{gen_s * 1e3:.1f} ms, {tok_s:.1f} tok/s; prefill {prefill_ms[-1]:.2f} ms "
+          f"(runs {', '.join(f'{m:.2f}' for m in prefill_ms)}; bound {prefill_bound_ms:.2f} ms: "
+          f"{prefill_flops / 1e12:.3f} TFLOP at 67 TFLOP/s f32), decode {decode_ms[-1]:.3f} ms "
+          f"per step (runs {', '.join(f'{m:.3f}' for m in decode_ms)}; bound {weight_ms:.3f} ms:"
+          f" {weight_bytes / 1e9:.2f} GB of f32 weights at 3.35 TB/s); peak device memory "
+          f"{peak / 1e6:.1f} MB ({held / 1e6:.1f} MB held before)")
+    print(f"  greedy tokens equal between generate(use_prefill=True) and False: {share:.4f} "
+          f"(ungated; the bf16 cache is read only on the token-by-token side); the warm-up "
+          f"call's tokens equal the timed call's: {bool(torch.equal(warm, out_pf))}")
+    print(f"  profile of one decode step (batch {GEN_BATCH}, position {max_seq - 1}): wall "
+          f"{wall * 1e3:.3f} ms, device busy {busy_ms:.3f} ms ({100 * busy_ms / (wall * 1e3):.1f}%),"
+          f" {sum(r[1] for r in rows)} kernels run")
+    for dev_us, count, name in rows[:6]:
+        print(f"      {dev_us / 1e3:9.3f} ms  x{count:<5d} {name[:90]}")
+    del model, caches, logits
+    torch.cuda.empty_cache()
+
+    args = ["--arch", MODEL_ARCH, "--batch", str(GEN_BATCH), "--prompt-len", str(GEN_PROMPT),
+            "--max-new", str(GEN_NEW)]
+    stdout, secs = run_module("repro_torch.launch.serve", args, timeout=600)
+    lines = stdout.strip().splitlines()
+    print(f"  python -m repro_torch.launch.serve {' '.join(args)} ({secs:.1f} s with start-up):")
+    for line in lines[-2:]:
+        print(f"    {line}")
+    check(len(lines) >= 2 and re.fullmatch(
+        rf"arch={MODEL_ARCH} generated \({GEN_BATCH}, {GEN_NEW}\) in [0-9.]+s "
+        r"\([0-9.]+ tok/s incl\. prompt\)", lines[-2]) is not None
+        and lines[-1].startswith("sample: ["), f"launch.serve printed {lines[-2:]}")
+    return {"arch": MODEL_ARCH, "params": n_params, "weight_gb": weight_bytes / 1e9,
+            "init_s": init_s, "prefill_rel_err_vs_cpu": e_pre, "decode_rel_err_vs_cpu": e_dec,
+            "continuation_rel_err": e_cont, "generate_ms": gen_s * 1e3, "tok_s": tok_s,
+            "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+            "prefill_bound_ms": prefill_bound_ms, "decode_bound_ms": weight_ms,
+            "peak_mb": peak / 1e6, "prefill_vs_token_by_token_share": share,
+            "decode_step_wall_ms": wall * 1e3, "decode_step_busy_ms": busy_ms,
+            "decode_step_kernels": sum(r[1] for r in rows),
+            "decode_step_top": [(name[:60], dev_us / 1e3) for dev_us, _, name in rows[:4]],
+            "serve_cli": lines[-2]}
+
+
+def probe_phase(torch, ops, mods, prepare, tri_case, proj_case):
+    """The linear probe through ``repro_torch.launch.linear_probe``: the
+    reference's reduced configuration at its gate, then granite-3-2b at full
+    width with the kernels (counters zeroed around the run) against the
+    kernels-off solve on the same features; the two kernels held against
+    their plain versions at the probe's shapes."""
+    linear_probe = mods.linear_probe
+    reset_launches(ops)
+    red = linear_probe.run(["--reduce", "--kernels", "--device", "cuda"])
+    red_launches = read_launches(ops)
+    rec = red["record"]
+    print(f"  --reduce --kernels: features {rec['features']}, mode {rec['mode']}, final MSE "
+          f"{rec['final_mse']:.3e} (gate {linear_probe.MSE_GATE:g}), launches {red_launches}")
+    check(rec["final_mse"] < linear_probe.MSE_GATE, f"reduced probe MSE {rec['final_mse']}")
+    reset_launches(ops)
+    full = linear_probe.run(["--kernels", "--device", "cuda"])
+    launches = read_launches(ops)
+    rec = full["record"]
+    off = linear_probe.fit(full["feats"], full["w_true"], False, "cuda")
+    diff = float(np.abs(full["result"].x - off.x).max())
+    tol = 1e-4 * max(1.0, float(np.abs(off.x).max()))
+    print(f"  --kernels (full width): features {rec['features']} in {rec['feature_seconds']:.3f} s,"
+          f" mode {rec['mode']}, solve {rec['solve_seconds']:.3f} s (kernels off "
+          f"{off.wall_seconds:.3f} s), final MSE {rec['final_mse']:.6e} (kernels off "
+          f"{float(off.final_mse):.6e}; ungated), max |x_kernels - x_plain| {diff:.3e} (tol "
+          f"{tol:.1e}), launches {launches}")
+    check(rec["mode"] == "wide", f"full-width probe mode {rec['mode']}")
+    check(launches["trisolve"] == 1 and launches["consensus_update"] == PROBE_EPOCHS,
+          f"full-width probe launches {launches}")
+    check(diff <= tol, f"full-width probe: kernels-on x differs from kernels-off by {diff}")
+    prep = prepare(full["feats"], method="dapc", num_blocks=8, materialize_p=False,
+                   use_kernels=True, device="cuda")
+    w, r = prep.factors
+    check(tuple(w.shape) == (8, 1024, 2048) and tuple(r.shape) == (8, 1024, 1024),
+          f"probe factors {tuple(w.shape)}, {tuple(r.shape)}")
+    tri_case("trisolve.probe", 8, 1024, 1, torch.float32, True, True, r)
+    proj_case("consensus_update.probe", w, 1, torch.float32, with_x=False)
+    return {"reduced": {**red["record"], "launches": red_launches},
+            "full": {**rec, "launches": launches, "plain_solve_seconds": off.wall_seconds,
+                     "plain_final_mse": float(off.final_mse), "max_abs_diff_vs_plain": diff}}
+
+
 def main() -> int:
     import torch
 
@@ -1649,8 +1922,12 @@ def main() -> int:
     )
     from repro_torch.kernels.trisolve import ops as trisolve_ops
     from repro_torch.kernels.trisolve.ref import trisolve_ref
+    from repro_torch.configs import get_config, reduced_config
     from repro_torch.core import prepare
+    from repro_torch.launch import linear_probe
     from repro_torch.launch import solve as launch_solve
+    from repro_torch.models import costs, transformer
+    from repro_torch.serving import decode
     from repro_torch.sparse import make_problem
 
     ops = SimpleNamespace(trisolve=trisolve_ops, project=project_ops, spmm=spmm_ops)
@@ -1723,6 +2000,20 @@ def main() -> int:
     print("SpMM kernels on the shards of the multi-device runs (kernel vs plain version):")
     cases.update(spmm_phase(torch, spmm_ops, spmm_plain, spmm_packed_plain, spmm_fused_plain,
                             spmm_fused_packed_plain, None, None, only=mesh["shards"]))
+    print(f"model serving (repro_torch.models, serving.decode, launch.serve) on {card}:")
+    t0 = time.perf_counter()
+    mods = SimpleNamespace(get_config=get_config, transformer=transformer, costs=costs,
+                           decode=decode, linear_probe=linear_probe)
+    model_reduced = model_parity_reduced(torch, get_config, reduced_config, transformer)
+    model = model_serving_phase(torch, mods, card)
+    print("the linear probe (repro_torch.launch.linear_probe):")
+    tri_case, proj_case = kernel_cases(torch, trisolve_ops, trisolve_ref, project_ops, project_ref,
+                                       consensus_update_ref,
+                                       torch.Generator(device="cuda").manual_seed(1), cases)
+    probe = probe_phase(torch, ops, mods, prepare, tri_case, proj_case)
+    print(f"  model phase: {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"model": {"card": card, "reduced": model_reduced, "full_width": model,
+                                "probe": probe}}))
 
     def entry(name, source, replaces, launches, case, extra=(), **notes):
         out = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1822,6 +2113,15 @@ def main() -> int:
         entry("spmm.served_mesh4", SPMM_SRC, SPMM_TPU, per_served["spmm"],
               "spmm.fwd.shard4_n2327", path="a served batch of the mesh replay",
               launches_per="served batch (rank 0)", batches=served_mesh["batches"]),
+    ]
+    on_probe = {"path": "the full-width linear probe's solve (launch.linear_probe --kernels: "
+                        "granite-3-2b features (8192, 2048), J = 8, 150 epochs)"}
+    kernels += [
+        entry("trisolve.probe", TRISOLVE_SRC, TRISOLVE_TPU, probe["full"]["launches"]["trisolve"],
+              "trisolve.probe", **on_probe),
+        entry("consensus_update.probe", PROJECT_SRC, PROJECT_TPU,
+              probe["full"]["launches"]["consensus_update"], "consensus_update.probe",
+              **on_probe),
     ]
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -711,3 +711,38 @@ def test_served_poisson_replay_through_the_kernels(cuda, path):
     else:
         assert launches["spmm_fused_packed"] == cap * nb and launches["spmm"] >= nb, launches
         assert launches["spmm_fused"] == 0, launches
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "granite-3-8b", "gemma-7b", "qwen1.5-32b"])
+def test_reduced_dense_forward_on_card_matches_cpu(cuda, arch):
+    """The model stack's serving path on the card against the port's CPU
+    path from the same weights: prefill logits at 1e-4·max|logits|, a
+    4-step decode continuation at 2e-2·scale, prefill on and off giving the
+    same greedy tokens on the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import transformer
+    from repro_torch.serving.decode import generate
+
+    cfg = dataclasses.replace(reduced_config(get_config(arch)), num_layers=3,
+                              layer_types=("dense",) * 3)
+    cpu = transformer.init_params(cfg, torch.Generator().manual_seed(0))
+    card = transformer.Transformer(cfg, cuda)
+    card.load_state_dict(cpu.state_dict())
+    toks = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 12)))
+    v = cfg.vocab_size
+    outs = {}
+    for name, model in (("cpu", cpu), ("cuda", card)):
+        logits, cache = transformer.prefill(model, toks[:, :8].to(model.device), cfg, 12)
+        steps = [transformer.decode_step(model, cache, toks[:, i:i + 1].to(model.device), i,
+                                         cfg)[0][:, 0, :v].cpu() for i in range(8, 12)]
+        outs[name] = (logits[..., :v].cpu(), torch.stack(steps, 1))
+    scale = float(outs["cpu"][0].abs().max())
+    torch.testing.assert_close(outs["cuda"][0], outs["cpu"][0], atol=1e-4 * scale, rtol=0)
+    scale = float(outs["cpu"][1].abs().max())
+    torch.testing.assert_close(outs["cuda"][1], outs["cpu"][1], atol=2e-2 * scale, rtol=0)
+    prompts = toks[:, :6].to(cuda)
+    torch.testing.assert_close(generate(card, cfg, prompts, max_new=5),
+                               generate(card, cfg, prompts, max_new=5, use_prefill=False),
+                               atol=0, rtol=0)

@@ -151,10 +151,13 @@ def test_partition_system_on_cpu():
 def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch import resolve_device
     from repro_torch.core import prepare, solve
-    from repro_torch.launch import serve_solver
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch import linear_probe, serve, serve_solver
     from repro_torch.launch import solve as launch_solve
+    from repro_torch.models import blocks, params_from_reference, transformer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced_config(get_config("granite-3-2b"))
     prob = tio.make_problem(n=16, m=64, seed=0, dtype=np.float32)
     for call in (
         lambda: resolve_device(None),
@@ -165,6 +168,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         lambda: launch_solve.main(["--n", "16", "--m", "64", "--blocks", "4"]),
         lambda: serve_solver.main(["--n", "16", "--m", "64", "--num-blocks", "4",
                                    "--requests", "2"]),
+        lambda: serve.main(["--arch", "granite-3-2b", "--reduce"]),
+        lambda: linear_probe.main(["--reduce"]),
+        lambda: transformer.Transformer(cfg),
+        lambda: blocks.make_block(cfg, "dense"),
+        lambda: transformer.init_cache(cfg, 1, 4),
+        lambda: params_from_reference(cfg, {}),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
@@ -228,7 +237,10 @@ def test_port_never_imports_jax_or_repro():
             "obs/__init__.py", "obs/convergence.py", "obs/clock.py", "obs/metrics.py",
             "obs/trace.py", "serving/__init__.py", "serving/policy.py",
             "serving/checkpoint.py", "serving/faults.py", "serving/queue.py",
-            "launch/serve_solver.py"} <= ported
+            "launch/serve_solver.py", "configs/base.py", "configs/shapes.py",
+            "models/spec.py", "models/layers.py", "models/blocks.py", "models/transformer.py",
+            "models/convert.py", "models/costs.py", "serving/decode.py", "launch/serve.py",
+            "launch/linear_probe.py"} <= ported
     offenders = {
         str(f.relative_to(ROOT)): sorted(_imports(f) & {"jax", "jaxlib", "repro"})
         for f in files
@@ -242,7 +254,9 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.kernels.project.ops, repro_torch.kernels.spmm.ops, repro_torch.core.matfree, "
         "repro_torch.sparse.bsr, repro_torch.core.dgd, repro_torch.core.cg, repro_torch.core.guard, "
         "repro_torch.core.session, repro_torch.obs, repro_torch.obs.convergence, "
-        "repro_torch.serving, repro_torch.launch.serve_solver\n"
+        "repro_torch.serving, repro_torch.launch.serve_solver, repro_torch.configs, "
+        "repro_torch.models, repro_torch.models.convert, repro_torch.serving.decode, "
+        "repro_torch.launch.serve, repro_torch.launch.linear_probe\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
     )
