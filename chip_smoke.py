@@ -114,8 +114,30 @@
    8 wide blocks) with the kernels, counted around the run (1 trisolve, 150
    consensus updates) and held against the kernels-off solve (1e-4·max(1,
    max|x|)); the two kernels against their plain versions at the probe's
-   shapes; prints a ``{"model": ...}`` summary line;
-13. prints the kernel table as one JSON line (with a row per kernel of one
+   shapes; prints a ``{"model": ...}`` summary line (the reduced card-vs-CPU
+   parity runs all ten archs: the dense four at 3 layers, the six below at
+   ``reduced_config``);
+13. serves the other six families at full width (``FAMILIES``: f32 weights
+   from a CUDA ``torch.Generator``, bf16 caches, depth cut only where the f32
+   weights would not fit beside a CPU copy or on the card, keeping the
+   arch's pattern; a vision cross gate set to 0.5): deepseek-moe-16b (4 of 28
+   layers), deepseek-v2-236b (2 of 60), zamba2-7b (15 of 81: two periods and
+   the tail), xlstm-1.3b (all 48), llama-3.2-vision-90b (5 of 100: one
+   period) and whisper-small (all): the parameter count against
+   ``count_params``; where a CPU copy fits, a 1 x 16 prompt and 4 decode steps
+   against the CPU (phase 12's gates) with the MoE routing of every call
+   equal on >= 99.9% of (token, slot) pairs (each difference printed with its
+   probability margin); the family's own property on the card (decode vs
+   teacher forcing at 0 MoE drops; prefill continuation vs token by token,
+   xlstm-1.3b's on its first period and, layer by layer at all 48, with
+   token by token against teacher forcing within the perturbation envelope;
+   the shared block's two caches, the cross cache written once, every state
+   finite; whisper's position-0 decode pinned and its encoder skipped in
+   decode); ``generate`` at batch 4, prompt 128, 32 new timed beside the cost
+   model's bounds (the decode step's bytes count every expert), one decode
+   step profiled; then ``launch.serve`` for whisper-small, xlstm-1.3b and
+   zamba2-7b at their full configs; prints a ``{"families": ...}`` line;
+14. prints the kernel table as one JSON line (with a row per kernel of one
    warm session update, of one served batch, of the multi-device runs and
    of the probe's solve, carrying the measured case of the same shapes), the
    card line again, and the ``{"ok": true, "device": ...}`` line last.
@@ -228,6 +250,37 @@ MODEL_PREFILL_GATE = {"reduced": 1e-4, "full": 1e-3}
 MODEL_DECODE_GATE = 2e-2
 GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 128, 32
 PROBE_EPOCHS = 150
+# phase 13: the other six families at full width (src/repro_torch/configs/<arch>.py),
+# f32 weights drawn on the card, bf16 caches. Depth is cut only where the f32
+# weights would not fit beside a CPU copy, or on the card: "cut" keeps that
+# many leading and trailing layers of the arch's own list (None: all), so the
+# pattern stays; "params" is count_params of the cut config; "cpu" marks the
+# card-vs-CPU parity run (phase 12's gates); "check" the on-card property the
+# reference tests for the family, gated at MODEL_DECODE_GATE with 0 MoE drops.
+# "gate_layers": those two run on the arch's first period (same weights), as
+# xlstm-1.3b's 48 layers without pre-norms are chaotic at random init: a 1e-7
+# perturbation of the embeddings grows to O(1) by layer 24 on the card and
+# on the CPU alike. Every CPU-parity arch is also held, layer by layer at its
+# full depth, within ENVELOPE_FACTOR of that perturbation's spread; a
+# "gate_layers" arch's prefill continuation and token-by-token decode are
+# held so at full depth too, against teacher forcing.
+FAMILIES = {
+    "deepseek-moe-16b": {"cut": (4, 0), "params": 2_561_165_312, "cpu": True,
+                         "check": "teacher"},
+    "deepseek-v2-236b": {"cut": (2, 0), "params": 8_468_526_080, "cpu": False,
+                         "check": "teacher"},
+    "zamba2-7b": {"cut": (12, 3), "params": 1_333_887_888, "cpu": True,
+                  "check": "continuation"},
+    "xlstm-1.3b": {"cut": None, "params": 1_942_837_584, "cpu": True, "check": "continuation",
+                   "gate_layers": 8},
+    "llama-3.2-vision-90b": {"cut": (5, 0), "params": 5_479_956_481, "cpu": False,
+                             "check": "continuation"},
+    "whisper-small": {"cut": None, "params": 238_187_532, "cpu": True, "check": "position0"},
+}
+FAMILY_CLI = ("whisper-small", "xlstm-1.3b", "zamba2-7b")  # launch.serve at full configs
+ROUTING_GATE = 0.999  # (token, slot) pairs routed alike on the card and the CPU
+PERTURBATION = 1e-7  # relative, on the embedding table, for the layer envelope
+ENVELOPE_FACTOR = 10.0
 
 TRISOLVE_SRC = "src/repro_torch/csrc/trisolve.cu"
 PROJECT_SRC = "src/repro_torch/csrc/project.cu"
@@ -1679,27 +1732,31 @@ def same_weights(transformer, model, device):
     return out
 
 
-def continuation(torch, transformer, model, toks, plen):
+def on(aux, device):
+    return None if aux is None else {k: v.to(device) for k, v in aux.items()}
+
+
+def continuation(torch, transformer, model, toks, plen, aux=None):
     """Prefill ``toks[:, :plen]``, then decode the rest teacher-forced: the
     prefill logits and the decode steps' logits, first vocab_size columns,
     on the host."""
     cfg = model.cfg
     v = cfg.vocab_size
-    toks = toks.to(model.device)
-    logits, cache = transformer.prefill(model, toks[:, :plen], cfg, toks.shape[1])
-    steps = [transformer.decode_step(model, cache, toks[:, i:i + 1], i, cfg)[0][:, 0, :v]
+    toks, aux = toks.to(model.device), on(aux, model.device)
+    logits, cache = transformer.prefill(model, toks[:, :plen], cfg, toks.shape[1], aux=aux)
+    steps = [transformer.decode_step(model, cache, toks[:, i:i + 1], i, cfg, aux=aux)[0][:, 0, :v]
              for i in range(plen, toks.shape[1])]
     return logits[..., :v].cpu(), torch.stack(steps, 1).cpu()
 
 
-def token_by_token(torch, transformer, model, toks, first):
+def token_by_token(torch, transformer, model, toks, first, aux=None):
     """Decode every token from an empty cache; logits of steps >= first."""
     cfg = model.cfg
-    toks = toks.to(model.device)
+    toks, aux = toks.to(model.device), on(aux, model.device)
     cache = transformer.init_cache(cfg, toks.shape[0], toks.shape[1], device=model.device)
     steps = []
     for i in range(toks.shape[1]):
-        logits, cache = transformer.decode_step(model, cache, toks[:, i:i + 1], i, cfg)
+        logits, cache = transformer.decode_step(model, cache, toks[:, i:i + 1], i, cfg, aux=aux)
         if i >= first:
             steps.append(logits[:, 0, :cfg.vocab_size])
     return torch.stack(steps, 1).cpu()
@@ -1709,19 +1766,35 @@ def rel_err(got, want) -> float:
     return float((got - want).abs().max()) / float(want.abs().max())
 
 
-def model_parity_reduced(torch, get_config, reduced_config, transformer):
-    """The four dense archs' reduced configs at 3 layers on the card against
-    the port's CPU path from the same weights (TF32 off)."""
+def open_gates(torch, blocks, model):
+    """Set every gated cross block's gate (zero-initialised, which would
+    silence the patches) to 0.5."""
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, blocks.CrossBlock) and module.gated:
+                module.gate.fill_(0.5)
+
+
+def model_parity_reduced(torch, mods):
+    """All ten archs' reduced configs on the card against the port's CPU
+    path from the same weights (TF32 off): the four dense archs at 3 dense
+    layers, the other six at ``reduced_config`` (a cross gate opened)."""
+    transformer = mods.transformer
     out = {}
-    for arch in MODEL_PARITY_ARCHS:
-        cfg = dense_layers(reduced_config(get_config(arch)), 3)
+    for arch in MODEL_PARITY_ARCHS + tuple(FAMILIES):
+        cfg = mods.reduced_config(mods.get_config(arch))
+        label = "reduced"
+        if arch in MODEL_PARITY_ARCHS:
+            cfg, label = dense_layers(cfg, 3), "reduced, 3 layers"
         cpu = transformer.init_params(cfg, torch.Generator().manual_seed(0))
+        open_gates(torch, mods.blocks, cpu)
         card = same_weights(transformer, cpu, torch.device("cuda"))
         toks = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 12)))
-        (pre_c, dec_c), (pre_g, dec_g) = (continuation(torch, transformer, m, toks, 8)
+        aux = mods.serve.stubs(cfg, 2, "cpu")
+        (pre_c, dec_c), (pre_g, dec_g) = (continuation(torch, transformer, m, toks, 8, aux)
                                           for m in (cpu, card))
         e_pre, e_dec = rel_err(pre_g, pre_c), rel_err(dec_g, dec_c)
-        print(f"  {arch} (reduced, 3 layers): prefill logits {e_pre:.3e}·max (gate "
+        print(f"  {arch} ({label}): prefill logits {e_pre:.3e}·max (gate "
               f"{MODEL_PREFILL_GATE['reduced']:g}), 4 decode steps {e_dec:.3e}·max (gate "
               f"{MODEL_DECODE_GATE:g})")
         check(e_pre <= MODEL_PREFILL_GATE["reduced"], f"{arch} reduced prefill: {e_pre}")
@@ -1900,6 +1973,449 @@ def probe_phase(torch, ops, mods, prepare, tri_case, proj_case):
                      "plain_final_mse": float(off.final_mse), "max_abs_diff_vs_plain": diff}}
 
 
+def family_config(get_config, arch):
+    """The arch's config at full width, its depth cut as ``FAMILIES`` says."""
+    cfg = get_config(arch)
+    cut = FAMILIES[arch]["cut"]
+    if cut is None:
+        return cfg
+    head, tail = cut
+    types = cfg.types[:head] + cfg.types[len(cfg.types) - tail:]
+    return dataclasses.replace(cfg, num_layers=len(types), layer_types=types)
+
+
+def routing_agreement(card, cpu):
+    """Expert ids of the same MoE calls (``moe.record_routing`` records) on
+    the card and the CPU: (equal (token, slot) pairs, all pairs, every
+    differing pair as (call, token, slot, card's expert, CPU's expert, the
+    margin between their two probabilities on the card))."""
+    check(len(card) == len(cpu), f"MoE calls: {len(card)} on the card, {len(cpu)} on the CPU")
+    equal = total = 0
+    diffs = []
+    for call, ((e_g, p_g, _), (e_c, _, _)) in enumerate(zip(card, cpu)):
+        e_g, p_g = e_g.cpu(), p_g.cpu()
+        same = e_g == e_c
+        equal += int(same.sum())
+        total += same.numel()
+        for tok, slot in (~same).nonzero().tolist():
+            a, b = int(e_g[tok, slot]), int(e_c[tok, slot])
+            diffs.append((call, tok, slot, a, b, abs(float(p_g[tok, a] - p_g[tok, b]))))
+    return equal, total, diffs
+
+
+def drops(records) -> int:
+    return sum(r[2] for r in records)
+
+
+def first_layers(torch, transformer, model, n):
+    """A model of ``model``'s first ``n`` layers (its embedding and final
+    norm too), holding copies of the same weights, on the same device."""
+    cfg = model.cfg
+    cut = dataclasses.replace(cfg, num_layers=n, layer_types=cfg.types[:n])
+    out = transformer.Transformer(cut, model.device)
+    state = model.state_dict()
+    out.load_state_dict({k: state[k] for k in out.state_dict()})
+    return out
+
+
+def layer_outputs(torch, transformer, model, toks, aux, scale=None):
+    """Every layer's output (host f32) of a train-mode forward of ``toks``,
+    the embedding table multiplied by ``scale`` for the run when given."""
+    outs = []
+    hooks = [layer.register_forward_hook(
+        lambda mod, args, out: outs.append(out[0].float().cpu()))
+        for layer in dict.fromkeys(model.layers)]
+    saved = None
+    if scale is not None:
+        saved = model.embed.clone()
+        with torch.no_grad():
+            model.embed.mul_(scale.to(model.device))
+    try:
+        transformer.forward_hidden(model, toks.to(model.device), model.cfg,
+                                   aux=on(aux, model.device))
+    finally:
+        if saved is not None:
+            with torch.no_grad():
+                model.embed.copy_(saved)
+        for hook in hooks:
+            hook.remove()
+    return outs
+
+
+def step_layer_outputs(torch, transformer, model, toks, plen, keep, aux=None):
+    """Every layer's output (host f32, (B, S - keep, D)) on the decode steps
+    of positions >= ``keep``: decoding ``toks`` from position ``plen``, after
+    a prefill of ``toks[:, :plen]`` (plen > 0) or from an empty cache."""
+    cfg = model.cfg
+    toks, aux = toks.to(model.device), on(aux, model.device)
+    step, kept = [], []
+    hooks = [layer.register_forward_hook(
+        lambda mod, args, out: step.append(out[0][:, -1].float().cpu()))
+        for layer in dict.fromkeys(model.layers)]
+    try:
+        if plen:
+            cache = transformer.prefill(model, toks[:, :plen], cfg, toks.shape[1], aux=aux)[1]
+        else:
+            cache = transformer.init_cache(cfg, toks.shape[0], toks.shape[1], device=model.device)
+        for i in range(plen, toks.shape[1]):
+            step.clear()
+            transformer.decode_step(model, cache, toks[:, i:i + 1], i, cfg, aux=aux)
+            if i >= keep:
+                kept.append(list(step))
+    finally:
+        for hook in hooks:
+            hook.remove()
+    return [torch.stack(outs, 1) for outs in zip(*kept)]
+
+
+def envelope_gate(cfg, rows, title):
+    """Print and gate layer rows (layer, type, difference, spread), each a
+    share of max|h|: every difference within ENVELOPE_FACTOR of its spread
+    (+1e-6)."""
+    worst = max(rows, key=lambda r: r[2] / (ENVELOPE_FACTOR * r[3] + 1e-6))
+    last = rows[-1]
+    shown = sorted({0, len(rows) - 1} | {r[0] for r in rows if r[1] != rows[0][1]}
+                   | set(range(7, len(rows), 8)))
+    print(f"    {title}, ·max|h|: "
+          + ", ".join(f"{i} {rows[i][1]} {rows[i][2]:.1e} | {rows[i][3]:.1e}" for i in shown[:12]))
+    ok = all(diff <= ENVELOPE_FACTOR * spread + 1e-6 for _, _, diff, spread in rows)
+    print(f"      worst ratio at layer {worst[0]} ({worst[2]:.2e} | {worst[3]:.2e}); last layer "
+          f"{last[2]:.2e} | {last[3]:.2e}; within {ENVELOPE_FACTOR:g}x the envelope at every "
+          f"layer: {ok}")
+    check(ok, f"{cfg.name}: {title} outside the rounding envelope at layer {worst[0]}")
+    return {"layers": [r[2] for r in rows], "envelope": [r[3] for r in rows]}
+
+
+def layer_envelope(torch, transformer, model, cpu, toks, aux):
+    """Layer by layer at full depth: the card against the CPU, beside the
+    spread a PERTURBATION of the embeddings causes on each (the rounding
+    envelope of the arch). Each layer's card-vs-CPU difference must stay
+    within ENVELOPE_FACTOR of the envelope (+1e-6): a fault of the card's
+    path would jump out of it while the envelope is small."""
+    gen = torch.Generator().manual_seed(5)
+    scale = 1 + PERTURBATION * torch.randn(model.cfg.d_model, generator=gen)
+    card, host = (layer_outputs(torch, transformer, m, toks, aux) for m in (model, cpu))
+    card_p, host_p = (layer_outputs(torch, transformer, m, toks, aux, scale)
+                      for m in (model, cpu))
+    rows = []
+    for i, (a, b, c, d) in enumerate(zip(card, host, card_p, host_p)):
+        top = float(a.abs().max())
+        diff = float((a - b).abs().max()) / top
+        spread = max(float((a - c).abs().max()), float((b - d).abs().max())) / top
+        rows.append((i, model.cfg.types[i], diff, spread))
+    return envelope_gate(model.cfg, rows, f"layer envelope (1 x {toks.shape[1]}, train mode; "
+                         f"card vs CPU | the spread of a {PERTURBATION:g} embedding perturbation)")
+
+
+def continuation_envelope(torch, transformer, model, toks, plen, aux=None):
+    """Layer by layer at full depth on the card, on the decode steps of
+    positions >= ``plen``: a prefill of ``toks[:, :plen]`` continued by
+    decode, and token-by-token decode from an empty cache, each against the
+    train-mode forward (teacher forcing), beside the spread a PERTURBATION
+    of the embeddings causes on that forward. A cache or state that prefill
+    or decode fails to keep (any period's) jumps out of the envelope at the
+    layers after it while the envelope is small."""
+    gen = torch.Generator().manual_seed(6)
+    scale = 1 + PERTURBATION * torch.randn(model.cfg.d_model, generator=gen)
+    teacher, moved = ([h[:, plen:] for h in layer_outputs(torch, transformer, model, toks, aux, sc)]
+                      for sc in (None, scale))
+    cont = step_layer_outputs(torch, transformer, model, toks, plen, plen, aux)
+    tbt = step_layer_outputs(torch, transformer, model, toks, 0, plen, aux)
+    rows = []
+    for i, (t, m, c, d) in enumerate(zip(teacher, moved, cont, tbt)):
+        top = float(t.abs().max())
+        diff = max(float((c - t).abs().max()), float((d - t).abs().max())) / top
+        rows.append((i, model.cfg.types[i], diff, float((m - t).abs().max()) / top))
+    return envelope_gate(model.cfg, rows, (
+        f"continuation envelope ({toks.shape[0]} x {toks.shape[1]}, prompt {plen}, the decode "
+        f"steps; prefill continuation and token by token vs teacher forcing | the spread of a "
+        f"{PERTURBATION:g} embedding perturbation)"))
+
+
+def family_parity(torch, mods, model, aux):
+    """Card against the CPU from the same weights: the layer envelope at
+    full depth, then a 1 x 16 prompt and 4 decode steps (phase 12's gates;
+    on the first ``gate_layers`` where FAMILIES sets it) and the MoE routing
+    of every call."""
+    transformer, moe = mods.transformer, mods.moe
+    cfg = model.cfg
+    toks = torch.randint(0, cfg.vocab_size, (1, 20), generator=torch.Generator().manual_seed(1))
+    cpu = same_weights(transformer, model, torch.device("cpu"))
+    envelope = layer_envelope(torch, transformer, model, cpu, toks[:, :16], aux)
+    gated = model
+    n = FAMILIES[cfg.name].get("gate_layers")
+    if n:
+        gated = first_layers(torch, transformer, model, n)
+        cpu = same_weights(transformer, gated, torch.device("cpu"))
+        print(f"    the parity gates below hold the first {n} layers (one period, the same "
+              f"weights); over all {cfg.num_layers} the envelope above is the gate")
+    t0 = time.perf_counter()
+    with moe.record_routing(gated) as r_card:
+        pre_g, dec_g = continuation(torch, transformer, gated, toks, 16, aux)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with moe.record_routing(cpu) as r_cpu:
+        pre_c, dec_c = continuation(torch, transformer, cpu, toks, 16, on(aux, "cpu"))
+    cpu_s = time.perf_counter() - t0
+    del cpu, gated
+    e_pre, e_dec = rel_err(pre_g, pre_c), rel_err(dec_g, dec_c)
+    out = {"prefill_rel_err_vs_cpu": e_pre, "decode_rel_err_vs_cpu": e_dec,
+           "card_s": card_s, "cpu_s": cpu_s, "envelope": envelope}
+    line = (f"    card vs CPU ({cfg.num_layers if not n else n} layers, 1 x 16 prompt + 4 decode "
+            f"steps; card {card_s:.2f} s, CPU "
+            f"{cpu_s:.2f} s): prefill logits {e_pre:.3e}·max (gate "
+            f"{MODEL_PREFILL_GATE['full']:g}), decode {e_dec:.3e}·max (gate {MODEL_DECODE_GATE:g})")
+    if r_card or r_cpu:
+        equal, total, diffs = routing_agreement(r_card, r_cpu)
+        out.update(routing_equal=equal, routing_pairs=total, routing_diffs=diffs,
+                   drops_card=drops(r_card), drops_cpu=drops(r_cpu))
+        line += (f"; MoE routing equal on {equal}/{total} (token, slot) pairs ("
+                 f"{equal / total:.5f}, gate {ROUTING_GATE}), drops {drops(r_card)} card / "
+                 f"{drops(r_cpu)} CPU")
+        for call, tok, slot, a, b, margin in diffs:
+            print(f"      routing differs: MoE call {call}, token {tok}, slot {slot}: card "
+                  f"expert {a}, CPU expert {b}, probability margin {margin:.3e}")
+        check(equal / total >= ROUTING_GATE, f"{cfg.name}: routing equal on {equal}/{total}")
+    print(line)
+    check(e_pre <= MODEL_PREFILL_GATE["full"], f"{cfg.name} prefill card vs CPU: {e_pre}")
+    check(e_dec <= MODEL_DECODE_GATE, f"{cfg.name} decode card vs CPU: {e_dec}")
+    return out
+
+
+def family_check(torch, mods, model, aux):
+    """The family's own property on the card: decode against teacher
+    forcing (MoE, at 0 drops), prefill continuation against token by token
+    (the recurrent states, the shared block's two caches, the cross cache
+    written once), or whisper's pinned position-0 decode and its encoder
+    skipped in decode. Where FAMILIES sets ``gate_layers``, the property is
+    gated on those first layers and, at full depth, by the continuation
+    envelope."""
+    transformer, moe = mods.transformer, mods.moe
+    kind = FAMILIES[model.cfg.name]["check"]
+    gen = torch.Generator().manual_seed(3)
+    out = {"check": kind}
+    n = FAMILIES[model.cfg.name].get("gate_layers")
+    if n:
+        toks = torch.randint(0, model.cfg.vocab_size, (2, 12),
+                             generator=torch.Generator().manual_seed(4))
+        out["full_depth"] = continuation_envelope(torch, transformer, model, toks, 8, aux)
+        model = first_layers(torch, transformer, model, n)
+        print(f"    (on the first {n} layers)")
+    cfg = model.cfg
+    dev = model.device
+    if kind == "teacher":
+        # 8 tokens cannot overflow the 8-slot minimum capacity: 0 drops by size
+        toks = torch.randint(0, cfg.vocab_size, (1, 8), generator=gen)
+        with moe.record_routing(model) as routed:
+            hid, _, _ = transformer.forward_hidden(model, toks.to(dev), cfg)
+            full = transformer.logits_from_hidden(model, hid, cfg)[..., :cfg.vocab_size].cpu()
+            dec = token_by_token(torch, transformer, model, toks, 0)
+        err, dropped = rel_err(dec, full), drops(routed)
+        print(f"    decode vs teacher forcing (1 x 8, the reference's test): {err:.3e}·scale "
+              f"(gate {MODEL_DECODE_GATE:g}), MoE drops {dropped} over {len(routed)} calls")
+        check(err <= MODEL_DECODE_GATE and dropped == 0,
+              f"{cfg.name} teacher forcing: {err}, drops {dropped}")
+        return {**out, "rel_err": err, "drops": dropped}
+    if kind == "position0":
+        toks = torch.randint(0, cfg.vocab_size, (2, 12), generator=gen).to(dev)
+        one = transformer._embed(model, toks[:, 5:6], cfg)
+        check(torch.equal(one, transformer._embed(model, toks[:, 5:], cfg)[:, :1]),
+              "whisper: a decode step's embedding is not position 0's")
+        hid, _, _ = transformer.forward_hidden(model, toks, cfg, aux=aux)
+        full = transformer.logits_from_hidden(model, hid, cfg)[..., :cfg.vocab_size].cpu()
+        _, tbt = continuation(torch, transformer, model, toks, 1, aux)
+        pinned = rel_err(tbt, full[:, 1:])
+        logits, cache = transformer.prefill(model, toks[:, :8], cfg, 12, aux=aux)
+        bare = {g: None if c is None else {s: {k: x.clone() for k, x in leaves.items()}
+                                           for s, leaves in c.items()} for g, c in cache.items()}
+        same = all(torch.equal(
+            transformer.decode_step(model, cache, toks[:, i:i + 1], i, cfg, aux=aux)[0],
+            transformer.decode_step(model, bare, toks[:, i:i + 1], i, cfg)[0]) for i in range(8, 12))
+        print(f"    whisper's decode embeds position 0 (the reference's fault, pinned): token by "
+              f"token vs teacher forcing {pinned:.3e}·scale (> 0.1 expected); decode logits "
+              f"with and without enc_frames equal (encoder skipped in decode): {same}")
+        check(pinned > 0.1 and same, f"whisper position-0 pin {pinned}, encoder skip {same}")
+        return {**out, "tbt_vs_teacher_rel_err": pinned, "encoder_skipped_equal": same}
+    toks = torch.randint(0, cfg.vocab_size, (2, 12), generator=gen)
+    _, cont = continuation(torch, transformer, model, toks, 8, aux)
+    if cfg.vision_seq:  # only a prefill writes the cross caches
+        tbt = continuation(torch, transformer, model, toks, 1, aux)[1][:, 7:]
+    else:
+        tbt = token_by_token(torch, transformer, model, toks, 8)
+    err = rel_err(cont, tbt)
+    out["rel_err"] = err
+    notes = []
+    logits, cache = transformer.prefill(model, toks[:, :8].to(dev), cfg, 12, aux=aux)
+    if "zamba_attn" in cfg.types:
+        first, second = (i for i, bt in enumerate(cfg.types) if bt == "zamba_attn")
+        k = cache["main"][f"cache{first}"]["k"]
+        two = (model.layers[first] is model.layers[second] and bool(k[0, :, :8].any())
+               and bool(k[1, :, :8].any()) and not torch.equal(k[0], k[1]))
+        notes.append(f"the shared block's two occurrences keep two caches: {two}")
+        check(two, "zamba2: the shared block's occurrences do not keep two caches")
+    cross = [c for group in cache.values() if group for c in group.values() if "ck" in c]
+    before = [(c["ck"].clone(), c["cv"].clone()) for c in cross]
+    for i in range(8, 12):
+        logits, cache = transformer.decode_step(model, cache, toks[:, i:i + 1].to(dev), i, cfg,
+                                                aux=aux)
+    if cross:
+        once = all(bool(c["ck"].any()) and torch.equal(c["ck"], ck) and torch.equal(c["cv"], cv)
+                   for c, (ck, cv) in zip(cross, before))
+        notes.append(f"cross caches written by prefill, unchanged by 4 decode steps: {once}")
+        check(once, "vision: the cross cache changed after prefill")
+    print(f"    prefill continuation vs token by token (2 x 12, prompt 8): {err:.3e}·scale "
+          f"(gate {MODEL_DECODE_GATE:g})" + "".join(f"; {note}" for note in notes))
+    check(err <= MODEL_DECODE_GATE, f"{cfg.name} continuation {err}")
+    return out
+
+
+def all_finite(torch, caches) -> bool:
+    return all(bool(torch.isfinite(x.float()).all()) for group in caches.values() if group
+               for leaves in group.values() for x in leaves.values())
+
+
+def family_timing(torch, mods, model, card):
+    """``generate`` at batch 4, prompt 128, 32 new tokens timed (prefill,
+    decode per step, tokens/s, peak memory), one decode step profiled, and
+    the bounds of the cost model: the prefill's f32 FLOPs, the decode step's
+    bytes (every weight but the encoder's, all experts, the cache)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    transformer, costs, decode, moe = mods.transformer, mods.costs, mods.decode, mods.moe
+    cfg = model.cfg
+    dev = model.device
+    aux = mods.serve.stubs(cfg, GEN_BATCH, dev)
+    prompts = torch.randint(0, cfg.vocab_size, (GEN_BATCH, GEN_PROMPT),
+                            generator=torch.Generator().manual_seed(2)).to(dev)
+    warm = decode.generate(model, cfg, prompts, max_new=GEN_NEW, aux=aux)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = decode.generate(model, cfg, prompts, max_new=GEN_NEW, aux=aux)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(tuple(out.shape) == (GEN_BATCH, GEN_NEW), f"{cfg.name} generate {tuple(out.shape)}")
+    check(bool((out >= 0).all() and (out < cfg.vocab_size).all()), f"{cfg.name} token ids")
+    max_seq = GEN_PROMPT + GEN_NEW
+    step = decode.prepared_serve_step(cfg)
+    prefill_ms, decode_ms = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = transformer.prefill(model, prompts, cfg, max_seq, aux=aux)
+        tok = torch.argmax(logits[:, -1:, :cfg.vocab_size], dim=-1)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        for t in range(GEN_PROMPT, max_seq - 1):
+            tok, caches = step(model, caches, tok, t, aux=aux)
+        torch.cuda.synchronize()
+        decode_ms.append((time.perf_counter() - t0) * 1e3 / (GEN_NEW - 1))
+    finite = bool(torch.isfinite(logits).all()) and all_finite(torch, caches)
+    check(finite, f"{cfg.name}: prefill logits or a cache or state after 31 decode steps "
+                  f"not finite")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(model, caches, tok, max_seq - 1, aux=aux)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = device_rows(prof)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    launches = sum(r[1] for r in rows)
+    with moe.record_routing(model) as routed:
+        transformer.prefill(model, prompts, cfg, max_seq, aux=aux)
+    prefill_drops = drops(routed)
+    decode_bytes = costs.decode_bytes(cfg, GEN_BATCH, max_seq)
+    decode_bound_ms = decode_bytes / costs.HBM_BW * 1e3
+    prefill_flops = costs.forward_flops(cfg, GEN_BATCH, GEN_PROMPT, "prefill")
+    prefill_bound_ms = prefill_flops / costs.PEAK_FLOPS_F32 * 1e3
+    tok_s = GEN_BATCH * GEN_NEW / gen_s
+    print(f"    generate (batch {GEN_BATCH}, prompt {GEN_PROMPT}, {GEN_NEW} new) on {card}: "
+          f"{gen_s * 1e3:.1f} ms, {tok_s:.1f} tok/s; prefill {prefill_ms[-1]:.2f} ms (runs "
+          f"{', '.join(f'{m:.2f}' for m in prefill_ms)}; bound {prefill_bound_ms:.2f} ms: "
+          f"{prefill_flops / 1e12:.3f} TFLOP at 67 TFLOP/s f32), decode {decode_ms[-1]:.3f} ms "
+          f"per step (runs {', '.join(f'{m:.3f}' for m in decode_ms)}; bound "
+          f"{decode_bound_ms:.3f} ms: {decode_bytes / 1e9:.2f} GB at 3.35 TB/s); peak device "
+          f"memory {peak / 1e6:.1f} MB ({held / 1e6:.1f} MB held before); the warm-up's tokens "
+          f"equal the timed call's: {bool(torch.equal(warm, out))}; prefill logits and every "
+          f"cache and state after the 31 steps finite: {finite}")
+    if routed:
+        print(f"    MoE drops in the {GEN_BATCH} x {GEN_PROMPT} prefill: {prefill_drops} (token, slot) pairs over "
+              f"{len(routed)} layers (capacity {moe.capacity(GEN_BATCH * GEN_PROMPT, cfg)}; the "
+              f"reference's semantics, ungated)")
+    print(f"    profile of one decode step (batch {GEN_BATCH}, position {max_seq - 1}): wall "
+          f"{wall * 1e3:.3f} ms, device busy {busy_ms:.3f} ms ({100 * busy_ms / (wall * 1e3):.1f}%),"
+          f" {launches} kernels run")
+    for dev_us, count, name in rows[:5]:
+        print(f"        {dev_us / 1e3:9.3f} ms  x{count:<5d} {name[:90]}")
+    return {"generate_ms": gen_s * 1e3, "tok_s": tok_s, "prefill_ms": prefill_ms,
+            "decode_ms_per_step": decode_ms, "prefill_bound_ms": prefill_bound_ms,
+            "decode_bound_ms": decode_bound_ms, "decode_bytes": decode_bytes,
+            "peak_mb": peak / 1e6, "held_mb": held / 1e6, "prefill_drops": prefill_drops,
+            "decode_step_wall_ms": wall * 1e3, "decode_step_busy_ms": busy_ms,
+            "decode_step_kernels": launches,
+            "decode_step_top": [(name[:60], dev_us / 1e3) for dev_us, _, name in rows[:4]]}
+
+
+def family_run(torch, mods, arch, card):
+    """One family at full width on the card (depth cut as ``FAMILIES``
+    says): parameters counted, parity with the CPU, the family's own check,
+    ``generate`` timed and profiled; the model freed after."""
+    spec = FAMILIES[arch]
+    cfg = family_config(mods.get_config, arch)
+    t_arch = time.perf_counter()
+    model = mods.transformer.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    open_gates(torch, mods.blocks, model)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t_arch
+    n_params = sum(p.numel() for p in model.parameters())
+    full = mods.get_config(arch)
+    cut = "" if spec["cut"] is None else (
+        f", cut from {full.num_layers} (the first {spec['cut'][0]}"
+        + (f" and the last {spec['cut'][1]}" if spec["cut"][1] else "") + " of its layers)")
+    print(f"  {arch}: {cfg.num_layers} layers{cut}, d_model {cfg.d_model}, {n_params:,} "
+          f"parameters ({n_params * 4 / 1e9:.2f} GB f32) drawn on the card in {init_s:.2f} s"
+          + ("; cross gates set to 0.5" if cfg.vision_seq else ""))
+    check(n_params == cfg.param_count() == spec["params"], f"{arch} parameter count {n_params}")
+    out = {"layers": cfg.num_layers, "layers_full": full.num_layers, "params": n_params,
+           "init_s": init_s}
+    aux = mods.serve.stubs(cfg, 1, model.device)
+    if spec["cpu"]:
+        out["parity"] = family_parity(torch, mods, model, aux)
+    out["check"] = family_check(torch, mods, model, mods.serve.stubs(cfg, 2, model.device))
+    out.update(family_timing(torch, mods, model, card))
+    del model
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_arch
+    print(f"    {arch}: {out['seconds']:.1f} s")
+    return out
+
+
+def family_phase(torch, mods, card):
+    """The six families item 10b ported, each at full width on the card,
+    then ``launch.serve`` at three of them as subprocesses."""
+    import re
+
+    out = {arch: family_run(torch, mods, arch, card) for arch in FAMILIES}
+    cli = {}
+    for arch in FAMILY_CLI:
+        args = ["--arch", arch, "--batch", str(GEN_BATCH), "--prompt-len", str(GEN_PROMPT),
+                "--max-new", str(GEN_NEW)]
+        stdout, secs = run_module("repro_torch.launch.serve", args, timeout=600)
+        lines = stdout.strip().splitlines()
+        print(f"  python -m repro_torch.launch.serve {' '.join(args)} ({secs:.1f} s with start-up):")
+        for line in lines[-2:]:
+            print(f"    {line}")
+        check(len(lines) >= 2 and re.fullmatch(
+            rf"arch={arch} generated \({GEN_BATCH}, {GEN_NEW}\) in [0-9.]+s "
+            r"\([0-9.]+ tok/s incl\. prompt\)", lines[-2]) is not None
+            and lines[-1].startswith("sample: ["), f"launch.serve {arch} printed {lines[-2:]}")
+        cli[arch] = {"line": lines[-2], "seconds": secs}
+    return {"archs": out, "serve_cli": cli}
+
+
 def main() -> int:
     import torch
 
@@ -1924,9 +2440,9 @@ def main() -> int:
     from repro_torch.kernels.trisolve.ref import trisolve_ref
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.core import prepare
-    from repro_torch.launch import linear_probe
+    from repro_torch.launch import linear_probe, serve
     from repro_torch.launch import solve as launch_solve
-    from repro_torch.models import costs, transformer
+    from repro_torch.models import blocks, costs, moe, transformer
     from repro_torch.serving import decode
     from repro_torch.sparse import make_problem
 
@@ -2002,9 +2518,10 @@ def main() -> int:
                             spmm_fused_packed_plain, None, None, only=mesh["shards"]))
     print(f"model serving (repro_torch.models, serving.decode, launch.serve) on {card}:")
     t0 = time.perf_counter()
-    mods = SimpleNamespace(get_config=get_config, transformer=transformer, costs=costs,
-                           decode=decode, linear_probe=linear_probe)
-    model_reduced = model_parity_reduced(torch, get_config, reduced_config, transformer)
+    mods = SimpleNamespace(get_config=get_config, reduced_config=reduced_config,
+                           transformer=transformer, blocks=blocks, moe=moe, costs=costs,
+                           decode=decode, serve=serve, linear_probe=linear_probe)
+    model_reduced = model_parity_reduced(torch, mods)
     model = model_serving_phase(torch, mods, card)
     print("the linear probe (repro_torch.launch.linear_probe):")
     tri_case, proj_case = kernel_cases(torch, trisolve_ops, trisolve_ref, project_ops, project_ref,
@@ -2014,6 +2531,12 @@ def main() -> int:
     print(f"  model phase: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"model": {"card": card, "reduced": model_reduced, "full_width": model,
                                 "probe": probe}}))
+    print(f"the other six families at full width (repro_torch.models, serving.decode, "
+          f"launch.serve) on {card}:")
+    t0 = time.perf_counter()
+    families = family_phase(torch, mods, card)
+    print(f"  families phase: {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"families": {"card": card, **families}}))
 
     def entry(name, source, replaces, launches, case, extra=(), **notes):
         out = {"name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -8,9 +8,13 @@ Usage:
 
 Weights are random, drawn from a ``torch.Generator`` seeded with ``--seed``
 on the serving device; prompts from one seeded with ``--seed + 1`` on the
-host, so every device serves the same prompts. Prints the reference's two
-lines (shape, seconds, tokens/s; the first sequence). On the card the clock
-stops after a synchronize.
+host, so every device serves the same prompts. The modality stubs are
+0.1·N(0, 1) on the serving device, as the reference draws them with PRNG
+keys 2 and 3: image patch embeddings (``vision_seq`` × d_model, vision
+archs) from a generator seeded 2, encoder frames (``encoder_seq`` ×
+d_model, encoder–decoder archs) from one seeded 3. Prints the reference's
+two lines (shape, seconds, tokens/s; the first sequence). On the card the
+clock stops after a synchronize.
 """
 from __future__ import annotations
 
@@ -37,6 +41,23 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
+def stubs(cfg, batch, device):
+    """The modality frontends' stand-ins ``generate`` takes as ``aux``, or
+    None for a text-only arch: 0.1·N(0, 1) patches (batch, vision_seq,
+    d_model) from a generator seeded 2 and encoder frames (batch,
+    encoder_seq, d_model) from one seeded 3, on ``device``."""
+    def draw(seq, seed):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        return 0.1 * torch.randn((batch, seq, cfg.d_model), generator=gen, device=device)
+
+    aux = {}
+    if cfg.vision_seq:
+        aux["patches"] = draw(cfg.vision_seq, 2)
+    if cfg.is_encdec:
+        aux["enc_frames"] = draw(cfg.encoder_seq, 3)
+    return aux or None
+
+
 def main(argv=None):
     args = parse_args(argv)
     device = resolve_device(args.device)
@@ -49,9 +70,10 @@ def main(argv=None):
         0, cfg.vocab_size, (args.batch, args.prompt_len),
         generator=torch.Generator().manual_seed(args.seed + 1),
     ).to(device)
+    aux = stubs(cfg, args.batch, device)
     synchronize(device)
     t0 = time.perf_counter()
-    out = generate(params, cfg, prompts, max_new=args.max_new)
+    out = generate(params, cfg, prompts, max_new=args.max_new, aux=aux)
     synchronize(device)
     dt = time.perf_counter() - t0
     toks = args.batch * args.max_new

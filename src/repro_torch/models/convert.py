@@ -5,8 +5,9 @@ pytree as nested dicts of numpy arrays (``jax.tree.map(np.asarray,
 params)``) and returns the port's ``Transformer`` with those weights. The
 reference stacks each period slot's layers along a leading axis
 (``main/slot{i}_{type}``, ``tail/tail_{type}``); layer ``r·len(period) + i``
-is entry ``r`` of slot ``i``. Every leaf must be used, exactly once per
-entry, and every parameter of the port must be filled.
+is entry ``r`` of slot ``i``; encoder block ``i`` of an encoder–decoder
+model is entry ``i`` of ``encoder/blocks``. Every leaf must be used,
+exactly once per entry, and every parameter of the port must be filled.
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ def params_from_reference(cfg, tree, device=None, dtype=torch.float32) -> Transf
     leaves = _flatten(tree)
     model = Transformer(cfg, device, dtype)
     used: dict[str, set] = {}
+    filled: set[int] = set()
 
     def load(param, path, index=None):
         """Copy leaf ``path`` (entry ``index`` of a stacked leaf) into ``param``."""
@@ -50,6 +52,7 @@ def params_from_reference(cfg, tree, device=None, dtype=torch.float32) -> Transf
         with torch.no_grad():
             param.copy_(torch.from_numpy(np.array(array, copy=True)).to(dtype))
         used.setdefault(path, set()).add(index)
+        filled.add(id(param))
 
     for name in model.specs:
         load(getattr(model, name), name)
@@ -64,6 +67,15 @@ def params_from_reference(cfg, tree, device=None, dtype=torch.float32) -> Transf
             prefix, index = f"tail/tail_{bt}", rep
         for name, param in block.named_parameters():
             load(param, f"{prefix}/{name.replace('.', '/')}", index)
+    if cfg.is_encdec:
+        for i, block in enumerate(model.encoder.blocks):
+            for name, param in block.named_parameters():
+                load(param, f"encoder/blocks/{name.replace('.', '/')}", i)
+        for name, param in model.encoder.final_norm.named_parameters():
+            load(param, f"encoder/final_norm/{name}")
+    unfilled = [name for name, param in model.named_parameters() if id(param) not in filled]
+    if unfilled:
+        raise ValueError(f"params_from_reference: the port's parameters left empty: {unfilled}")
     left = sorted(set(leaves) - set(used))
     if left:
         raise ValueError(f"params_from_reference: reference leaves left over: {left}")

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.configs.shapes import ShapeConfig
 from repro_torch.models import transformer
+from repro_torch.models.spec import iter_specs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,6 +172,18 @@ def _cache_bytes_global(cfg, b, s):
             for shape, dtype, _ in leaves.values():
                 total += math.prod(shape) * (2 if dtype == torch.bfloat16 else 4)
     return total
+
+
+def decode_bytes(cfg, b, s):
+    """The least HBM bytes of one decode step of batch ``b`` against caches
+    of ``s`` positions on one device: every weight read once at 4 bytes
+    (f32, as ``init_params`` draws them), the encoder's excepted (decode reads the cross
+    caches instead), and the whole cache read once. A MoE layer reads all of
+    its experts: the capacity dispatch gives each expert at least 8 slots,
+    so every expert runs on a decode step."""
+    weights = sum(math.prod(leaf.shape) for path, leaf in iter_specs(transformer.param_specs(cfg))
+                  if not path.startswith("encoder/"))
+    return weights * 4 + _cache_bytes_global(cfg, b, s)
 
 
 def step_cost(cfg, shape: ShapeConfig, num_devices: int, mesh_shape: dict,

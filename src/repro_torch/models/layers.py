@@ -190,13 +190,24 @@ def attention(q, k, v, causal=True, q_offset=0, chunk_q=0, chunk_kv=0):
     return _plain_attention(q, k, v, causal, q_offset)
 
 
+def promote(*tensors):
+    """The tensors cast to their common dtype, as ``jnp.einsum`` and ``@``
+    promote mixed operands (bf16 with f32 computes in f32)."""
+    dtype = tensors[0].dtype
+    for t in tensors[1:]:
+        dtype = torch.promote_types(dtype, t.dtype)
+    return tuple(t.to(dtype) for t in tensors)
+
+
 def decode_attention(q, k_cache, v_cache, length):
-    """q (B,1,H,D); caches (B,Smax,Hkv,D); positions >= length are masked."""
+    """q (B,1,H,D); caches (B,Smax,Hkv,D); positions >= length are masked.
+    Mixed dtypes promote as the reference's einsums do: the weights are cast
+    to the value cache's dtype before the second product."""
     b, _, h, d = q.shape
     hkv = k_cache.shape[2]
     g = h // hkv
     qg = q.reshape(b, hkv, g, d)
-    s = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache).float()
+    s = torch.einsum("bhgd,bkhd->bhgk", *promote(qg, k_cache)).float()
     s = s * (1.0 / math.sqrt(d))
     invalid = torch.arange(k_cache.shape[1], device=q.device) >= length  # (Smax,)
     s = s.masked_fill(invalid, -math.inf)
@@ -237,8 +248,8 @@ def apply_mlp(p, x, cfg):
 
 
 class MLP(SpecModule):
-    def __init__(self, cfg, device=None, dtype=torch.float32):
-        super().__init__(mlp_spec(cfg), device, dtype)
+    def __init__(self, cfg, device=None, dtype=torch.float32, d_ff=None):
+        super().__init__(mlp_spec(cfg, d_ff=d_ff), device, dtype)
         self.cfg = cfg
 
     def forward(self, x):

@@ -61,8 +61,10 @@ def draw(spec: ParamSpec, generator: torch.Generator, dtype=torch.float32,
 
 
 class SpecModule(torch.nn.Module):
-    """A module whose parameters are the leaves of one flat spec dict; the
-    specs stay beside them so ``init_params`` can draw each one. Built on
+    """A module whose parameters are the leaves of one spec dict; the specs
+    stay beside them so ``init_params`` can draw each one. A nested dict
+    becomes a child ``SpecModule`` of the same name, so parameter names
+    follow the reference's tree (``ffn.w_in`` for ``ffn/w_in``). Built on
     ``device``, the card unless the caller asks for the CPU."""
 
     def __init__(self, specs: dict, device=None, dtype=torch.float32):
@@ -70,6 +72,9 @@ class SpecModule(torch.nn.Module):
         device = resolve_device(device)
         self.specs = {}
         for name, spec in specs.items():
+            if isinstance(spec, dict):
+                self.add_module(name, SpecModule(spec, device, dtype))
+                continue
             if not isinstance(spec, ParamSpec):
                 raise TypeError(f"{type(self).__name__}: {name} is not a ParamSpec")
             self.specs[name] = spec

@@ -10,7 +10,8 @@ is an ``nn.Module`` tree with one block module per layer (a weight-shared
 block is one module repeated), and ``forward_hidden`` is a Python loop over
 them where the reference scans. Layer ``r·len(period) + i`` is slot ``i`` of
 period ``r``; its cache is entry ``r`` of the stacked slot cache, a view
-that prefill and decode write in place.
+that prefill and decode write in place. An encoder–decoder model
+(whisper) also holds ``encoder.blocks`` and ``encoder.final_norm``.
 
 ``loss_fn`` and ``cast_for_compute`` are the training item (ROADMAP Queue 1
 item 10c).
@@ -134,10 +135,6 @@ class Transformer(SpecModule):
     is the card."""
 
     def __init__(self, cfg, device=None, dtype=torch.float32):
-        for bt in dict.fromkeys(cfg.types):
-            blocks.require_ported(bt)
-        if cfg.is_encdec:
-            blocks.require_ported("enc")
         device = resolve_device(device)
         specs = param_specs(cfg)
         super().__init__({k: specs[k] for k in ("embed", "lm_head") if k in specs},
@@ -151,6 +148,11 @@ class Transformer(SpecModule):
         )
         self.slots = layer_slots(cfg)
         self.final_norm = layers.make_norm(cfg, device, dtype)
+        if cfg.is_encdec:
+            self.encoder = torch.nn.Module()
+            self.encoder.blocks = torch.nn.ModuleList(
+                blocks.make_block(cfg, "enc", device, dtype) for _ in range(cfg.encoder_layers))
+            self.encoder.final_norm = layers.make_norm(cfg, device, dtype)
 
     @property
     def head(self) -> torch.Tensor:
@@ -195,18 +197,40 @@ def _embed(params, tokens, cfg):
     return x * math.sqrt(cfg.d_model)
 
 
+def _encode(params, frames, cfg):
+    """The encoder stack over (B, T, D) frames (sinusoidal positions when
+    ``pos_embed`` is absolute), then its final norm."""
+    if cfg.pos_embed == "absolute":
+        pos = torch.arange(frames.shape[1], device=frames.device)[None, :]
+        frames = frames + _sinusoidal(pos, cfg.d_model).to(frames.dtype)
+    for block in params.encoder.blocks:
+        frames, _, _ = blocks.apply_block(cfg, "enc", block, frames)
+    return params.encoder.final_norm(frames)
+
+
 @torch.no_grad()
 def forward_hidden(params, tokens, cfg, mode="train", caches=None, pos=0, aux=None):
-    """Token ids -> final hidden states. Returns (hidden, caches, aux_loss);
-    prefill and decode write ``caches`` in place."""
+    """Token ids -> final hidden states. Returns (hidden, caches, aux_loss:
+    the blocks' summed MoE losses); prefill and decode write ``caches`` in
+    place. ``aux`` holds the modality stubs (``patches``, ``enc_frames``),
+    cast to the compute dtype. The encoder runs on ``enc_frames`` in train
+    and prefill only: decode's cross-attention reads the ``ck``/``cv``
+    caches, so the reference's per-step encoder pass is skipped (the same
+    output)."""
     x = _embed(params, tokens, cfg)
+    if aux is not None:
+        aux = {k: (v.to(x.dtype) if torch.is_tensor(v) else v) for k, v in aux.items()}
+        if cfg.is_encdec and "enc_frames" in aux and mode != "decode":
+            aux["enc_out"] = _encode(params, aux["enc_frames"], cfg)
+    aux_total = 0.0
     for layer, block, (group, slot, rep) in zip(cfg.types, params.layers, params.slots):
         cache = None
         if caches is not None:
             cache = {k: v[rep] for k, v in caches[group][f"cache{slot}"].items()}
-        x, _, _ = blocks.apply_block(cfg, layer, block, x, mode, cache, pos, aux)
+        x, _, aux_loss = blocks.apply_block(cfg, layer, block, x, mode, cache, pos, aux)
+        aux_total = aux_total + aux_loss
     x = params.final_norm(x)
-    return x, caches, 0.0
+    return x, caches, aux_total
 
 
 @torch.no_grad()
@@ -245,8 +269,6 @@ def cache_shapes(cfg, batch, max_seq):
 
 def init_cache(cfg, batch, max_seq, device=None):
     """Zeroed caches on ``device`` (the card unless the caller says)."""
-    for bt in dict.fromkeys(cfg.types):
-        blocks.require_ported(bt)
     device = resolve_device(device)
     return {
         gname: None if slots is None else {

@@ -36,6 +36,22 @@ def cuda():
     return torch.device("cuda")
 
 
+def port_model(arch):
+    """The port's reduced model of ``arch`` on the CPU from its own init
+    (seed 0); a cross block's gate is opened to 0.5 (it initialises at 0,
+    which would silence the patches)."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import blocks, transformer
+
+    cfg = reduced_config(get_config(arch))
+    model = transformer.init_params(cfg, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, blocks.CrossBlock) and module.gated:
+                module.gate.fill_(0.5)
+    return cfg, model
+
+
 def _tri(J, n, k, dtype, seed, lower=False):
     rng = np.random.default_rng(seed)
     r = np.triu(rng.standard_normal((J, n, n)))
@@ -746,3 +762,48 @@ def test_reduced_dense_forward_on_card_matches_cpu(cuda, arch):
     torch.testing.assert_close(generate(card, cfg, prompts, max_new=5),
                                generate(card, cfg, prompts, max_new=5, use_prefill=False),
                                atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "deepseek-v2-236b", "zamba2-7b",
+                                  "xlstm-1.3b", "llama-3.2-vision-90b", "whisper-small"])
+def test_reduced_families_on_card_match_cpu(cuda, arch):
+    """The six families of item 10b at ``reduced_config`` on the card against
+    the port's CPU path from the same weights (a cross gate opened to 0.5):
+    train-mode logits and prefill logits at 1e-4·max, a 4-step decode
+    continuation at 2e-2·scale, the MoE routing's expert ids equal, every
+    output finite."""
+    from repro_torch.models import moe, transformer
+
+    cfg, cpu = port_model(arch)
+    card = transformer.Transformer(cfg, cuda)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(1)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 12)))
+    aux = {}
+    if cfg.vision_seq:
+        aux["patches"] = torch.as_tensor(0.1 * rng.standard_normal((2, cfg.vision_seq, cfg.d_model)),
+                                         dtype=torch.float32)
+    if cfg.is_encdec:
+        aux["enc_frames"] = torch.as_tensor(
+            0.1 * rng.standard_normal((2, cfg.encoder_seq, cfg.d_model)), dtype=torch.float32)
+    v = cfg.vocab_size
+    outs = {}
+    for name, model in (("cpu", cpu), ("cuda", card)):
+        dev = model.device
+        a = {k: x.to(dev) for k, x in aux.items()} or None
+        with moe.record_routing(model) as routed:
+            hid, _, _ = transformer.forward_hidden(model, toks.to(dev), cfg, aux=a)
+            full = transformer.logits_from_hidden(model, hid, cfg)[..., :v].cpu()
+            logits, cache = transformer.prefill(model, toks[:, :8].to(dev), cfg, 12, aux=a)
+            steps = [transformer.decode_step(model, cache, toks[:, i:i + 1].to(dev), i, cfg,
+                                             aux=a)[0][:, 0, :v].cpu() for i in range(8, 12)]
+        outs[name] = (full, logits[..., :v].cpu(), torch.stack(steps, 1),
+                      [r[0].cpu() for r in routed])
+    for got, want, rtol in zip(outs["cuda"][:3], outs["cpu"][:3], (1e-4, 1e-4, 2e-2)):
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got, want, atol=rtol * float(want.abs().max()), rtol=0)
+    # each MoE layer routes once in the forward, once in prefill, 4 decode steps
+    moe_layers = cfg.types.count("moe") + cfg.types.count("mla_moe")
+    assert len(outs["cuda"][3]) == len(outs["cpu"][3]) == 6 * moe_layers
+    for got, want in zip(outs["cuda"][3], outs["cpu"][3]):
+        assert torch.equal(got, want)

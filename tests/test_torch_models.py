@@ -19,7 +19,7 @@ from repro.models import transformer as jt
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.models import blocks, layers, transformer
 from repro_torch.models.convert import params_from_reference
-from repro_torch.models.spec import ParamSpec, draw
+from repro_torch.models.spec import ParamSpec, draw, iter_specs
 
 DENSE_ARCHS = ["granite-3-2b", "granite-3-8b", "gemma-7b", "qwen1.5-32b"]
 UNPORTED_ARCHS = ["deepseek-moe-16b", "deepseek-v2-236b", "zamba2-7b", "xlstm-1.3b",
@@ -278,22 +278,61 @@ def test_init_params_follows_the_specs():
                             torch.bfloat16), torch.zeros(2, 3, dtype=torch.bfloat16))
 
 
-@pytest.mark.parametrize("btype", sorted(blocks.UNPORTED))
+# the block types and archs that raised item 10b until it was ported: each
+# now builds and runs (the parity tests are test_torch_{moe,ssm_xlstm,families}.py)
+ITEM_10B_TYPES = ["cross", "enc", "encdec_dec", "mamba2", "mla_moe", "mlstm", "moe", "slstm"]
+ITEM_10B_ARCH_OF = {"cross": "llama-3.2-vision-90b", "enc": "whisper-small",
+                    "encdec_dec": "whisper-small", "mamba2": "zamba2-7b",
+                    "mla_moe": "deepseek-v2-236b", "mlstm": "xlstm-1.3b",
+                    "moe": "deepseek-moe-16b", "slstm": "xlstm-1.3b"}
+
+
+@pytest.mark.parametrize("btype", ITEM_10B_TYPES)
 def test_unported_block_types_raise_with_their_item(btype):
-    cfg = reduced_config(get_config("granite-3-2b"))
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        blocks.apply_block(cfg, btype, None, torch.zeros(1, 1, cfg.d_model))
-    with pytest.raises(NotImplementedError, match=btype):
-        blocks.make_block(cfg, btype, "cpu")
+    """Item 10b is in: ``make_block`` builds the type with the reference's
+    parameter names and counts, and ``apply_block`` runs it in every mode,
+    writing its cache in place."""
+    assert btype in blocks._MAKERS
+    cfg = reduced_config(get_config(ITEM_10B_ARCH_OF[btype]))
+    block = blocks.make_block(cfg, btype, "cpu")
+    names = {name.replace(".", "/") for name, _ in block.named_parameters()}
+    assert names == {path for path, _ in iter_specs(blocks.block_spec(cfg, btype))}
+    gen = torch.Generator().manual_seed(0)
+    for module in block.modules():
+        if hasattr(module, "reset_parameters"):
+            module.reset_parameters(gen)
+    aux = {"patches": 0.1 * torch.randn(2, cfg.vision_seq or 1, cfg.d_model, generator=gen),
+           "enc_out": 0.1 * torch.randn(2, cfg.encoder_seq, cfg.d_model, generator=gen)}
+    x = torch.randn(2, 5, cfg.d_model, generator=gen)
+    y, cache, _ = blocks.apply_block(cfg, btype, block, x, "train", aux=aux)
+    assert y.shape == x.shape and bool(torch.isfinite(y).all()) and cache is None
+    shapes = blocks.cache_shapes(cfg, btype, 2, 8)
+    if shapes is None:  # the encoder block keeps no cache
+        assert btype == "enc"
+        return
+    cache = {k: torch.zeros(shape, dtype=dtype) for k, (shape, dtype, _) in shapes.items()}
+    with torch.no_grad():
+        _, same, _ = blocks.apply_block(cfg, btype, block, x, "prefill", cache, aux=aux)
+        assert same is cache and all(bool(v.any()) for v in cache.values())
+        y1, _, _ = blocks.apply_block(cfg, btype, block, x[:, :1], "decode", cache, 5, aux)
+    assert y1.shape == (2, 1, cfg.d_model) and bool(torch.isfinite(y1).all())
 
 
 @pytest.mark.parametrize("arch", UNPORTED_ARCHS)
 def test_unported_archs_raise_with_their_item(arch):
+    """Every arch item 10b ported builds, with the reference's parameter
+    count, and its cache tree has the reference's leaves, shapes and dtypes."""
     cfg = reduced_config(get_config(arch))
-    assert transformer.count_params(cfg) == jt.count_params(jreduce(jget(arch)))
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        transformer.init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        transformer.init_cache(cfg, 1, 4, device="cpu")
-    # the cache declaration stays, as costs.py counts it
-    assert transformer.cache_shapes(cfg, 1, 4) is not None
+    jcfg = jreduce(jget(arch))
+    assert transformer.count_params(cfg) == jt.count_params(jcfg)
+    model = transformer.init_params(cfg, torch.Generator().manual_seed(0))
+    assert sum(p.numel() for p in model.parameters()) == jt.count_params(jcfg)
+    got = transformer.init_cache(cfg, 1, 4, device="cpu")
+    want = jt.init_cache(jcfg, 1, 4)
+    flat = jax.tree_util.tree_flatten_with_path(want)[0]
+    assert len(flat) == sum(len(leaves) for g in got.values() if g for leaves in g.values())
+    for path, leaf in flat:
+        group, slot, name = (str(getattr(k, "key", k)) for k in path)
+        tensor = got[group][slot][name]
+        assert tuple(tensor.shape) == leaf.shape and not tensor.any()
+        assert str(tensor.dtype).removeprefix("torch.") == str(leaf.dtype)

@@ -240,7 +240,8 @@ def test_port_never_imports_jax_or_repro():
             "launch/serve_solver.py", "configs/base.py", "configs/shapes.py",
             "models/spec.py", "models/layers.py", "models/blocks.py", "models/transformer.py",
             "models/convert.py", "models/costs.py", "serving/decode.py", "launch/serve.py",
-            "launch/linear_probe.py"} <= ported
+            "launch/linear_probe.py", "models/moe.py", "models/ssm.py",
+            "models/xlstm.py"} <= ported
     offenders = {
         str(f.relative_to(ROOT)): sorted(_imports(f) & {"jax", "jaxlib", "repro"})
         for f in files
@@ -256,7 +257,8 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.core.session, repro_torch.obs, repro_torch.obs.convergence, "
         "repro_torch.serving, repro_torch.launch.serve_solver, repro_torch.configs, "
         "repro_torch.models, repro_torch.models.convert, repro_torch.serving.decode, "
-        "repro_torch.launch.serve, repro_torch.launch.linear_probe\n"
+        "repro_torch.launch.serve, repro_torch.launch.linear_probe, repro_torch.models.moe, "
+        "repro_torch.models.ssm, repro_torch.models.xlstm, repro_torch.models.blocks\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
     )
