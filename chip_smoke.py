@@ -137,7 +137,32 @@
    model's bounds (the decode step's bytes count every expert), one decode
    step profiled; then ``launch.serve`` for whisper-small, xlstm-1.3b and
    zamba2-7b at their full configs; prints a ``{"families": ...}`` line;
-14. prints the kernel table as one JSON line (with a row per kernel of one
+14. trains the model stack (``repro_torch.training``, ``models.losses``,
+   ``launch.train``): (a) one ``loss_fn`` step with gradients for each of
+   the ten reduced archs on the card against the port's CPU path from the
+   same weights, f32 compute at 1e-5 (loss) and 1e-4·max|g|, MoE routing
+   equal first, and in the arch's own bf16 compute finite with some
+   gradient nonzero and every matrix of every block call (recompute
+   included) a bf16 copy, where the f32 run computes on the masters; (b) flash attention's backward at granite-3-2b's
+   attention shapes (1 x 4096, 32 heads over 8, d 64, chunk 1024) against
+   autograd of the plain core in f32 (1e-4·max) and bf16 (5e-2·max), and
+   the chunked cross-entropy at (2, 4096, 2048) x 49408 against a
+   full-logits ``F.cross_entropy``; (c) granite-3-2b at full width and
+   depth (2.53e9 f32 masters, bf16 compute, block remat, S 4096, the
+   global batch cut from 256 to 2) for 30 steps of ``train_loop.train``:
+   every logged number finite, the logged loss falling (the mean of the
+   last 5 below the first 5's, the last below the first), the loss on step
+   1's batch lower after training, a first-order descent check in f32, the
+   median warm step,
+   tokens/s and peak memory beside ``costs.step_cost``'s bound, one step
+   profiled; (d) in a fresh process with the cuBLAS workspace fixed and
+   deterministic algorithms, an exact restart at full width cut to 2
+   layers (fail at step 4 of 6, checkpoints every 2, resume), the card's
+   checkpoint restored on the CPU with the reference's leaf names; (e) int8
+   gradient compression on the reference test's tiny config; (f) ``python
+   -m repro_torch.launch.train`` with ``--fail-at`` and a rerun that ends
+   at the uninterrupted final loss; prints a ``{"train": ...}`` line;
+15. prints the kernel table as one JSON line (with a row per kernel of one
    warm session update, of one served batch, of the multi-device runs and
    of the probe's solve, carrying the measured case of the same shapes), the
    card line again, and the ``{"ok": true, "device": ...}`` line last.
@@ -281,6 +306,30 @@ FAMILY_CLI = ("whisper-small", "xlstm-1.3b", "zamba2-7b")  # launch.serve at ful
 ROUTING_GATE = 0.999  # (token, slot) pairs routed alike on the card and the CPU
 PERTURBATION = 1e-7  # relative, on the embedding table, for the layer envelope
 ENVELOPE_FACTOR = 10.0
+
+# phase 14: training (src/repro_torch/training, models/losses.py, launch/train.py)
+TRAIN_ARCH = "granite-3-2b"
+TRAIN_SEQ, TRAIN_BATCH = 4096, 2  # train_4k's sequence (configs/shapes.py); batch cut 256 -> 2
+# launch/train.py's recipe (launch.train.opt_config) at OptConfig's default
+# learning rate, chosen after the launch's --lr 3e-3 default (sized for
+# reduced configs) made the full-width loss rise (PERF.md section 6). Over
+# 10 steps the logged loss rises with the warmup; it falls over 30, so the
+# gate compares the mean of the last TRAIN_WINDOW logged losses with the
+# first TRAIN_WINDOW's, and the last loss with the first.
+TRAIN_STEPS, TRAIN_WINDOW = 30, 5
+TRAIN_LR = 3e-4
+# the descent check at full width, f32 compute: one step of size eta along
+# -g with eta·|g|² = DESCENT_DROP must lower the loss on the same batch by
+# 0.5–1.5x that (a first-order check of the full-width gradient)
+DESCENT_DROP = 0.05
+TRAIN_F32_GATE = {"loss": 1e-5, "grads": 1e-4}  # reduced archs, card vs CPU, f32 compute
+FLASH_GATE = {"float32": 1e-4, "bfloat16": 5e-2}  # flash backward vs autograd of the plain core
+RESTART_LAYERS, RESTART_STEPS, RESTART_FAIL_AT, RESTART_EVERY = 2, 6, 4, 2
+TRAIN_CLI_STEPS, TRAIN_CLI_FAIL_AT = 40, 20
+# the reference test's tiny config (tests/test_training.py:18-25)
+TINY_TRAIN = dict(name="tiny", family="dense", num_layers=2, d_model=32, num_heads=2,
+                  num_kv_heads=2, d_ff=64, vocab_size=64, attn_chunk_q=0, xent_chunk=16,
+                  remat="none")
 
 TRISOLVE_SRC = "src/repro_torch/csrc/trisolve.cu"
 PROJECT_SRC = "src/repro_torch/csrc/project.cu"
@@ -2031,8 +2080,9 @@ def layer_outputs(torch, transformer, model, toks, aux, scale=None):
         with torch.no_grad():
             model.embed.mul_(scale.to(model.device))
     try:
-        transformer.forward_hidden(model, toks.to(model.device), model.cfg,
-                                   aux=on(aux, model.device))
+        with torch.no_grad():
+            transformer.forward_hidden(model, toks.to(model.device), model.cfg,
+                                       aux=on(aux, model.device))
     finally:
         if saved is not None:
             with torch.no_grad():
@@ -2206,7 +2256,7 @@ def family_check(torch, mods, model, aux):
     if kind == "teacher":
         # 8 tokens cannot overflow the 8-slot minimum capacity: 0 drops by size
         toks = torch.randint(0, cfg.vocab_size, (1, 8), generator=gen)
-        with moe.record_routing(model) as routed:
+        with moe.record_routing(model) as routed, torch.no_grad():
             hid, _, _ = transformer.forward_hidden(model, toks.to(dev), cfg)
             full = transformer.logits_from_hidden(model, hid, cfg)[..., :cfg.vocab_size].cpu()
             dec = token_by_token(torch, transformer, model, toks, 0)
@@ -2218,10 +2268,11 @@ def family_check(torch, mods, model, aux):
         return {**out, "rel_err": err, "drops": dropped}
     if kind == "position0":
         toks = torch.randint(0, cfg.vocab_size, (2, 12), generator=gen).to(dev)
-        one = transformer._embed(model, toks[:, 5:6], cfg)
-        check(torch.equal(one, transformer._embed(model, toks[:, 5:], cfg)[:, :1]),
-              "whisper: a decode step's embedding is not position 0's")
-        hid, _, _ = transformer.forward_hidden(model, toks, cfg, aux=aux)
+        with torch.no_grad():
+            one = transformer._embed(model, toks[:, 5:6], cfg)
+            check(torch.equal(one, transformer._embed(model, toks[:, 5:], cfg)[:, :1]),
+                  "whisper: a decode step's embedding is not position 0's")
+            hid, _, _ = transformer.forward_hidden(model, toks, cfg, aux=aux)
         full = transformer.logits_from_hidden(model, hid, cfg)[..., :cfg.vocab_size].cpu()
         _, tbt = continuation(torch, transformer, model, toks, 1, aux)
         pinned = rel_err(tbt, full[:, 1:])
@@ -2416,6 +2467,482 @@ def family_phase(torch, mods, card):
     return {"archs": out, "serve_cli": cli}
 
 
+
+# ---------------------------------------------------------------------------
+# phase 14: training
+# ---------------------------------------------------------------------------
+
+
+def train_batch(cfg, b, s, seed):
+    """The reference smoke test's ``_batch`` layout drawn by numpy: tokens and
+    targets (B, S), patches / frames at 0.1·N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (b, s + 1))
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    if cfg.vision_seq:
+        batch["patches"] = (0.1 * rng.standard_normal((b, cfg.vision_seq, cfg.d_model))).astype(
+            np.float32)
+    if cfg.is_encdec:
+        batch["enc_frames"] = (0.1 * rng.standard_normal((b, cfg.encoder_seq, cfg.d_model))
+                               ).astype(np.float32)
+    return batch
+
+
+def loss_and_grads(torch, mods, model, batch, cfg):
+    """One ``loss_fn`` with gradients: (loss, MoE routing records, {name: grad}
+    on the host, {dtype: count} of the matrices the blocks computed with,
+    recompute included)."""
+    batch = {k: torch.as_tensor(v).to(model.device) for k, v in batch.items()}
+    model.zero_grad(set_to_none=True)
+    with mods.transformer.record_compute_dtypes(model) as dtypes:
+        with mods.moe.record_routing(model) as routed:
+            loss, _ = mods.transformer.loss_fn(model, batch, cfg)
+        loss.backward()
+    grads = {n: (torch.zeros_like(p) if p.grad is None else p.grad).float().cpu()
+             for n, p in model.named_parameters()}
+    return float(loss.detach()), routed, grads, dict(dtypes)
+
+
+def block_matrices(model):
+    """Matrices (ndim >= 2) summed over the block calls of one forward."""
+    units = list(model.layers) + (list(model.encoder.blocks) if model.cfg.is_encdec else [])
+    return sum(p.ndim >= 2 for block in units for p in block.parameters())
+
+
+def train_parity_reduced(torch, mods):
+    """(a) All ten reduced archs, one loss_fn with gradients on the card and
+    on the port's CPU path from the same weights and batch: f32 compute held
+    at 1e-5 (loss) and 1e-4·max|g| (every leaf), MoE routing equal first;
+    the arch's own bf16 compute finite, loss > 0.5, some gradient nonzero."""
+    out = {}
+    for arch in mods.ARCHS:
+        base = mods.reduced_config(mods.get_config(arch))
+        cfg = dataclasses.replace(base, dtype="float32")
+        cpu = mods.transformer.init_params(cfg, torch.Generator().manual_seed(0))
+        open_gates(torch, mods.blocks, cpu)
+        card = same_weights(mods.transformer, cpu, torch.device("cuda"))
+        cpu.requires_grad_(True)
+        card.requires_grad_(True)
+        batch = train_batch(cfg, 2, 16, seed=1)
+        loss_c, routed_c, g_c, _ = loss_and_grads(torch, mods, cpu, batch, cfg)
+        loss_g, routed_g, g_g, dt_g = loss_and_grads(torch, mods, card, batch, cfg)
+        same_routes = all(torch.equal(a[0].cpu(), b[0]) for a, b in zip(routed_g, routed_c))
+        check(len(routed_g) == len(routed_c) and same_routes, f"{arch}: MoE routing differs")
+        gmax = max(float(g.abs().max()) for g in g_c.values())
+        worst = max((float((g_g[n] - g_c[n]).abs().max()), n) for n in g_c)
+        leaf = max(float((g_g[n] - g_c[n]).abs().max()) / max(float(g_c[n].abs().max()), 1e-30)
+                   for n in g_c)
+        e_loss = abs(loss_g - loss_c) / abs(loss_c)
+        # the arch's own bf16 compute on the card: every matrix of every
+        # block call a bf16 copy, forward and recompute (the f32 run above is
+        # the control: the masters' f32)
+        loss_b, _, g_b, dt_b = loss_and_grads(torch, mods, card, batch, base)
+        finite = all(bool(torch.isfinite(g).all()) for g in g_b.values())
+        nonzero = any(float(g.abs().max()) > 0 for g in g_b.values())
+        calls = block_matrices(card) * (2 if base.remat == "block" else 1)
+        bf16_only = dt_b == {torch.bfloat16: calls} and dt_g == {torch.float32: calls}
+        print(f"  {arch}: f32 loss {loss_g:.6f} vs CPU {loss_c:.6f} ({e_loss:.2e} rel, gate "
+              f"{TRAIN_F32_GATE['loss']:g}); grads {worst[0] / gmax:.2e}·max|g| (gate "
+              f"{TRAIN_F32_GATE['grads']:g}; worst {worst[1]}; per leaf {leaf:.2e}); "
+              f"{len(routed_g)} MoE calls routed alike; bf16 loss {loss_b:.4f}, grads finite "
+              f"{finite}, nonzero {nonzero}; block matrices computed in bf16 "
+              f"{dt_b.get(torch.bfloat16, 0)} of {calls} (f32 control: "
+              f"{dt_g.get(torch.float32, 0)} in f32)")
+        check(e_loss <= TRAIN_F32_GATE["loss"], f"{arch} f32 loss card vs CPU {e_loss}")
+        check(worst[0] <= TRAIN_F32_GATE["grads"] * gmax, f"{arch} f32 grads {worst}")
+        check(np.isfinite(loss_b) and loss_b > 0.5 and finite and nonzero,
+              f"{arch} bf16 step: loss {loss_b}, finite {finite}, nonzero {nonzero}")
+        check(bf16_only, f"{arch} compute dtypes: bf16 run {dt_b}, f32 run {dt_g}, {calls} calls")
+        out[arch] = {"loss_rel_err": e_loss, "grad_err_over_max": worst[0] / gmax,
+                     "grad_err_per_leaf": leaf, "moe_calls": len(routed_g), "bf16_loss": loss_b,
+                     "bf16_matrix_calls": dt_b.get(torch.bfloat16, 0), "matrix_calls": calls}
+    return out
+
+
+def timed_backward(torch, fn, inputs, dout, iters=3):
+    """fn(*inputs) forward + backward of ``dout``: (output, grads, ms per
+    call over ``iters`` calls after the first, CUDA events)."""
+    def run():
+        for x in inputs:
+            x.grad = None
+        out = fn(*inputs)
+        out.backward(dout)
+        return out
+    out = run()
+    grads = [x.grad.clone() for x in inputs]
+    ms = cuda_ms(torch, run, iters)
+    return out.detach(), grads, ms
+
+
+def flash_xent_phase(torch, mods):
+    """(b) Flash attention's backward at granite-3-2b's attention shapes
+    (B 1, S 4096, 32 heads over 8 KV heads, d 64, chunk 1024, causal)
+    against autograd of the plain core (which materialises the scores), in
+    f32 and bf16; the chunked cross-entropy at (2, 4096, 2048) x 49408
+    padded vocab against a full-logits ``F.cross_entropy``."""
+    import torch.nn.functional as F
+
+    layers, losses = mods.layers, mods.losses
+    cfg = mods.get_config(TRAIN_ARCH)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    b, s, h, hkv, d = 1, TRAIN_SEQ, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_actual
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn((b, s, n, d), generator=gen, device=dev).to(dtype).requires_grad_(True)
+                   for n in (h, hkv, hkv))
+        dout = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
+        o_f, g_f, ms_f = timed_backward(torch, lambda q, k, v: layers.attention(
+            q, k, v, causal=True, chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv),
+            (q, k, v), dout)
+        o_p, g_p, ms_p = timed_backward(torch, lambda q, k, v: layers._plain_attention(
+            q, k, v, True), (q, k, v), dout)
+        errs = [rel_err(a.float(), b_.float()) for a, b_ in zip([o_f] + g_f, [o_p] + g_p)]
+        name = str(dtype).split(".")[-1]
+        print(f"  flash {name}: out {errs[0]:.2e}, dq {errs[1]:.2e}, dk {errs[2]:.2e}, dv "
+              f"{errs[3]:.2e} ·max of the plain core's (gate {FLASH_GATE[name]:g}); fwd+bwd "
+              f"{ms_f:.2f} ms chunked, {ms_p:.2f} ms plain")
+        check(max(errs) <= FLASH_GATE[name], f"flash {name}: {errs}")
+        out[f"flash_{name}"] = {"errs_out_dq_dk_dv": errs, "ms": ms_f, "plain_ms": ms_p}
+        del q, k, v, dout, o_f, g_f, o_p, g_p
+    torch.cuda.empty_cache()
+    vpad, chunk = cfg.padded_vocab, cfg.xent_chunk
+    hidden = torch.randn((TRAIN_BATCH, s, cfg.d_model), generator=gen, device=dev)
+    embed = 0.02 * torch.randn((vpad, cfg.d_model), generator=gen, device=dev)
+    targets = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, s), generator=gen, device=dev)
+    pad_cols = torch.arange(vpad, device=dev) >= cfg.vocab_size
+
+    def full(hid, emb):
+        logits = (hid @ emb.T).masked_fill(pad_cols, -1e30)
+        return F.cross_entropy(logits.reshape(-1, vpad), targets.reshape(-1))
+
+    hid, emb = hidden.requires_grad_(True), embed.requires_grad_(True)
+    l_c, g_c, ms_c = timed_backward(torch, lambda a, e: losses.chunked_softmax_xent(
+        a, e, targets, cfg.vocab_size, chunk), (hid, emb), torch.ones((), device=dev))
+    l_p, g_p, ms_p = timed_backward(torch, full, (hid, emb), torch.ones((), device=dev))
+    e_loss = abs(float(l_c) - float(l_p)) / abs(float(l_p))
+    e_h, e_e = rel_err(g_c[0], g_p[0]), rel_err(g_c[1], g_p[1])
+    print(f"  chunked cross-entropy ({TRAIN_BATCH}, {s}, {cfg.d_model}) x {vpad} (chunk {chunk}):"
+          f" loss {float(l_c):.6f} vs full logits {float(l_p):.6f} ({e_loss:.2e} rel), dhidden "
+          f"{e_h:.2e}, dembed {e_e:.2e} ·max (gates 1e-5, 1e-4); fwd+bwd {ms_c:.2f} ms chunked, "
+          f"{ms_p:.2f} ms full logits")
+    check(e_loss <= 1e-5 and e_h <= 1e-4 and e_e <= 1e-4, f"xent: {e_loss}, {e_h}, {e_e}")
+    out["xent"] = {"loss_rel_err": e_loss, "dhidden": e_h, "dembed": e_e, "ms": ms_c,
+                   "full_logits_ms": ms_p}
+    del hidden, embed, hid, emb, g_c, g_p
+    torch.cuda.empty_cache()
+    return out
+
+
+def descent_check(torch, mods, model, cfg, batch):
+    """The full-width gradient against the loss it predicts, in f32 compute:
+    loss and gradient g on ``batch``, then one step of eta = DESCENT_DROP /
+    |g|² along -g must lower the loss on the same batch by 0.5–1.5x
+    eta·|g|² (the first-order prediction). The model keeps the step."""
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model.zero_grad(set_to_none=True)
+    loss0, _ = mods.transformer.loss_fn(model, batch, cfg32)
+    loss0.backward()
+    params = [p for p in model.parameters() if p.grad is not None]
+    gn2 = float(sum(torch.sum(p.grad.double() ** 2) for p in params))
+    eta = DESCENT_DROP / gn2
+    with torch.no_grad():
+        for p in params:
+            p.sub_(eta * p.grad)
+        model.zero_grad(set_to_none=True)
+        loss1, _ = mods.transformer.loss_fn(model, batch, cfg32)
+    drop = float(loss0.detach()) - float(loss1)
+    ratio = drop / DESCENT_DROP
+    print(f"    descent check (f32 compute, step 1's batch): loss {float(loss0.detach()):.6f}, "
+          f"|g| {gn2 ** 0.5:.4f}; a step of {eta:.3e} along -g predicts a drop of "
+          f"{DESCENT_DROP:g}, measured {drop:.6f} ({ratio:.4f}x; gate 0.5–1.5x)")
+    check(0.5 <= ratio <= 1.5, f"full-width descent check: {drop} against {DESCENT_DROP}")
+    return {"loss": float(loss0.detach()), "grad_norm": gn2 ** 0.5, "eta": eta,
+            "predicted_drop": DESCENT_DROP, "measured_drop": drop}
+
+
+def full_width_train(torch, mods, card):
+    """(c) granite-3-2b at full width and depth: f32 masters, bf16 compute,
+    block remat, flash at chunk 1024, xent chunk 512, S 4096, batch 2,
+    TRAIN_STEPS steps of ``train_loop.train``. Gates: every logged number
+    finite; the logged loss falls (each is taken on a batch the model has
+    not seen): the mean of the last TRAIN_WINDOW below the mean of the
+    first TRAIN_WINDOW, and the last below the first; the loss on step 1's
+    batch lower after training than at step 1; the descent check
+    (``descent_check``). Printed: the median warm step, tokens/s and peak
+    memory beside ``costs.step_cost``'s bound; one more step profiled."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tl, costs = mods.train_loop, mods.costs
+    dev = torch.device("cuda")
+    cfg = mods.get_config(TRAIN_ARCH)
+    tcfg = tl.TrainConfig(opt=mods.opt_config(TRAIN_STEPS, TRAIN_LR), num_steps=TRAIN_STEPS,
+                          log_every=1)
+    dcfg = mods.DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0, repeat_prob=0.75)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = tl.init_state(cfg, torch.Generator(device=dev).manual_seed(0), tcfg)
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    state, hist = tl.train(cfg, tcfg, dcfg, state=state)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in hist]
+    norms = [h["grad_norm"] for h in hist]
+    stamps = [0.0] + [h["seconds"] for h in hist]
+    steps_s = np.diff(stamps)
+    warm = float(np.median(steps_s[1:]))
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / warm
+    cost = costs.step_cost(cfg, mods.ShapeConfig("train_4k_batch2", TRAIN_SEQ, TRAIN_BATCH,
+                                                 "train"), 1, {})
+    flop_ms = cost.flops / costs.PEAK_FLOPS * 1e3
+    byte_ms = cost.hbm_bytes / costs.HBM_BW * 1e3
+    print(f"  {cfg.name} at full width: {n_params:,} parameters, {cfg.num_layers} layers, "
+          f"S {TRAIN_SEQ}, batch {TRAIN_BATCH}, {TRAIN_STEPS} steps at lr {TRAIN_LR:g} on {card}")
+    print(f"    losses {', '.join(f'{x:.4f}' for x in losses)}")
+    print(f"    grad norms {', '.join(f'{x:.3f}' for x in norms)}")
+    print(f"    step seconds {', '.join(f'{x:.3f}' for x in steps_s)}: median warm step "
+          f"{warm * 1e3:.1f} ms, {tok_s:.1f} tokens/s; peak device memory {peak / 1e9:.2f} GB; "
+          f"bound {max(flop_ms, byte_ms):.1f} ms ({cost.flops / 1e12:.1f} TFLOP at 989 TFLOP/s "
+          f"bf16 = {flop_ms:.1f} ms; {cost.hbm_bytes / 1e9:.1f} GB at 3.35 TB/s = "
+          f"{byte_ms:.1f} ms)")
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)), "full-width train: not finite")
+    first, last = np.mean(losses[:TRAIN_WINDOW]), np.mean(losses[-TRAIN_WINDOW:])
+    print(f"    logged loss: mean of steps 1–{TRAIN_WINDOW} {first:.4f}, of steps "
+          f"{TRAIN_STEPS - TRAIN_WINDOW + 1}–{TRAIN_STEPS} {last:.4f}; step 1 {losses[0]:.4f}, "
+          f"step {TRAIN_STEPS} {losses[-1]:.4f} (gates: lower)")
+    check(last < first and losses[-1] < losses[0],
+          f"full-width train: the logged loss does not fall: {losses}")
+    descent = descent_check(torch, mods, state["params"], cfg, mods.make_batch(dcfg, 0, dev))
+    print(f"    step 1's batch: loss {losses[0]:.4f} before training, {descent['loss']:.4f} after "
+          f"the {TRAIN_STEPS} steps (f32 compute; gate: lower)")
+    check(descent["loss"] < losses[0], f"full-width train: step 1's batch {losses[0]} -> "
+          f"{descent['loss']}")
+    step_fn = tl.make_train_step(cfg, tcfg.opt)
+    batch = mods.make_batch(dcfg, TRAIN_STEPS, dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        float(metrics["loss"])
+        wall = time.perf_counter() - t0
+    rows = device_rows(prof)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    launches = sum(r[1] for r in rows)
+    print(f"    profile of step {TRAIN_STEPS + 1}: wall {wall * 1e3:.1f} ms, device busy "
+          f"{busy_ms:.1f} ms ({100 * busy_ms / (wall * 1e3):.1f}%), {launches} kernels run")
+    for dev_us, count, name in rows[:8]:
+        print(f"      {dev_us / 1e3:9.3f} ms  x{count:<6d} {name[:90]}")
+    del state, metrics, batch, step_fn
+    torch.cuda.empty_cache()
+    return {"params": n_params, "losses": losses, "grad_norms": norms, "descent": descent,
+            "loss_window_means": [first, last],
+            "step_seconds": steps_s.tolist(), "median_warm_step_ms": warm * 1e3,
+            "tokens_per_s": tok_s, "peak_gb": peak / 1e9, "bound_ms": max(flop_ms, byte_ms),
+            "flop_bound_ms": flop_ms, "byte_bound_ms": byte_ms, "profiled_wall_ms": wall * 1e3,
+            "profiled_busy_ms": busy_ms, "profiled_launches": launches,
+            "profiled_top": [(name[:60], dev_us / 1e3) for dev_us, _, name in rows[:6]]}
+
+
+def restart_check(out_path):
+    """(d), run as ``chip_smoke.py --restart-check OUT`` with
+    CUBLAS_WORKSPACE_CONFIG set before CUDA starts: granite-3-2b at full
+    width cut to 2 layers, 6 uninterrupted steps against a run that fails
+    at step 4 (checkpoints every 2) and resumes, under
+    ``torch.use_deterministic_algorithms(True)``; the card's checkpoint
+    restored on the CPU, its leaf names against the reference's tree
+    (``param_specs``, the port's copy of it). Writes a JSON record."""
+    import tempfile
+
+    import torch
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import opt_config
+    from repro_torch.models import transformer
+    from repro_torch.models.spec import iter_specs
+    from repro_torch.training import checkpoint as ckpt_lib
+    from repro_torch.training import data as data_lib
+    from repro_torch.training import train_loop as tl
+
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dense_layers(get_config(TRAIN_ARCH), RESTART_LAYERS)
+    opt = opt_config(RESTART_STEPS, TRAIN_LR)
+    dcfg = data_lib.DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0, repeat_prob=0.75)
+    t0 = time.perf_counter()
+    plain, hist = tl.train(cfg, tl.TrainConfig(opt=opt, num_steps=RESTART_STEPS, log_every=1),
+                           dcfg)
+    want = tl.state_tree(plain)
+    n_params = sum(p.numel() for p in plain["params"].parameters())
+    del plain
+    t_plain = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as ck:
+        tcfg = tl.TrainConfig(opt=opt, num_steps=RESTART_STEPS, ckpt_dir=ck,
+                              ckpt_every=RESTART_EVERY, log_every=1)
+        t0 = time.perf_counter()
+        try:
+            tl.train(cfg, tcfg, dcfg, fail_at_step=RESTART_FAIL_AT)
+            failed = False
+        except RuntimeError as e:
+            failed = "simulated node failure" in str(e)
+        steps_before = ckpt_lib.all_steps(ck)
+        resumed, hist2 = tl.train(cfg, tcfg, dcfg)
+        t_restart = time.perf_counter() - t0
+        got = tl.state_tree(resumed)
+        del resumed
+        ckpt_bytes = sum(f.stat().st_size for f in Path(ck, f"step_{RESTART_STEPS}").iterdir())
+        with open(Path(ck, f"step_{RESTART_STEPS}", "manifest.json")) as f:
+            names = set(json.load(f)["leaves"])
+        t0 = time.perf_counter()
+        on_cpu = ckpt_lib.restore(ck, RESTART_STEPS, want, device="cpu")
+        t_restore = time.perf_counter() - t0
+    fw, fg, fc = ckpt_lib.flatten(want), ckpt_lib.flatten(got), ckpt_lib.flatten(on_cpu)
+    params = [k for k in fw if k.startswith("params/")]
+    bit_equal = all(np.array_equal(fw[k], fg[k]) for k in fw)
+    max_diff = max(float(np.abs(fw[k].astype(np.float64) - fg[k]).max()) for k in params)
+    cpu_equal = all(fc[k].device.type == "cpu" and np.array_equal(fc[k].numpy(), fg[k])
+                    for k in fg)
+    leaves = [p for p, _ in iter_specs(transformer.param_specs(cfg))]
+    ref_names = ({f"params/{p}" for p in leaves} | {f"opt/mu/{p}" for p in leaves}
+                 | {f"opt/nu/{p}" for p in leaves} | {"opt/step"})
+    rec = {"layers": RESTART_LAYERS, "params": n_params, "failed_at": RESTART_FAIL_AT if failed
+           else None, "checkpoints_before_resume": steps_before, "resumed_from":
+           hist2[0]["step"] - 1, "bit_equal": bit_equal, "max_param_diff": max_diff,
+           "losses": [h["loss"] for h in hist], "resumed_losses": [h["loss"] for h in hist2],
+           "checkpoint_gb": ckpt_bytes / 1e9, "restored_on_cpu_equal": cpu_equal,
+           "leaf_names_equal_reference": names == ref_names, "leaves": len(names),
+           "plain_s": t_plain, "fail_and_resume_s": t_restart, "cpu_restore_s": t_restore,
+           "deterministic": torch.are_deterministic_algorithms_enabled()}
+    Path(out_path).write_text(json.dumps(rec))
+    return 0
+
+
+def restart_phase():
+    """(d) ``restart_check`` in a fresh process, with the cuBLAS workspace
+    fixed before CUDA starts; its gates: the resumed params within 1e-6 of
+    the uninterrupted run's (bit equality printed), the CPU restore equal,
+    the leaf names the reference's."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp, "restart.json")
+        env = {**os.environ, "PYTHONPATH": str(SRC), "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--restart-check",
+                              str(path)], capture_output=True, text=True, env=env, timeout=900)
+        secs = time.perf_counter() - t0
+        if run.returncode:
+            print(run.stdout[-6000:])
+            print(run.stderr[-6000:], file=sys.stderr)
+        check(run.returncode == 0, f"restart check exited {run.returncode}")
+        rec = json.loads(path.read_text())
+    print(f"  restart at full width, {rec['layers']} of 40 layers ({rec['params']:,} parameters, "
+          f"{rec['checkpoint_gb']:.2f} GB per checkpoint; {secs:.1f} s with start-up): failed at "
+          f"step {rec['failed_at']} with checkpoints {rec['checkpoints_before_resume']}, resumed "
+          f"from step {rec['resumed_from']}; params bit-equal to the uninterrupted run: "
+          f"{rec['bit_equal']} (max |diff| {rec['max_param_diff']:.3e}, gate 1e-6); the card's "
+          f"checkpoint restored on the CPU equal: {rec['restored_on_cpu_equal']}; its "
+          f"{rec['leaves']} leaf names the reference's: {rec['leaf_names_equal_reference']}; "
+          f"deterministic algorithms {rec['deterministic']}")
+    print(f"    losses {rec['losses']}, resumed {rec['resumed_losses']}")
+    check(rec["failed_at"] == RESTART_FAIL_AT and rec["resumed_from"] == RESTART_FAIL_AT,
+          f"restart: {rec}")
+    check(rec["max_param_diff"] <= 1e-6, f"restart: params differ by {rec['max_param_diff']}")
+    check(rec["restored_on_cpu_equal"] and rec["leaf_names_equal_reference"], f"restart: {rec}")
+    rec["seconds"] = secs
+    return rec
+
+
+def compression_phase(torch, mods):
+    """(e) int8 gradient compression on the reference test's tiny config on
+    the card: 60 steps compressed and uncompressed, the compressed loss falls
+    and ends within 0.05 of the uncompressed (the reference's gate)."""
+    tl = mods.train_loop
+    cfg = mods.ModelConfig(**TINY_TRAIN)
+    opt = mods.OptConfig(learning_rate=3e-3, warmup_steps=5, total_steps=60)
+    dcfg = mods.DataConfig(cfg.vocab_size, 16, 8, seed=0)
+    hists = {}
+    for comp in (False, True):
+        tcfg = tl.TrainConfig(opt=opt, num_steps=60, compress_grads=comp, log_every=10)
+        _, hists[comp] = tl.train(cfg, tcfg, dcfg)
+    first, last, plain = hists[True][0]["loss"], hists[True][-1]["loss"], hists[False][-1]["loss"]
+    print(f"  int8 compression with error feedback (tiny config, 60 steps): compressed loss "
+          f"{first:.4f} -> {last:.4f}, uncompressed {hists[False][0]['loss']:.4f} -> {plain:.4f} "
+          f"(gate: falls, and below uncompressed + 0.05)")
+    check(last < first and last < plain + 0.05, f"compression: {first} -> {last} vs {plain}")
+    return {"compressed": [h["loss"] for h in hists[True]],
+            "uncompressed": [h["loss"] for h in hists[False]]}
+
+
+def run_module_may_fail(module, args, timeout):
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    out = subprocess.run([sys.executable, "-m", module, *args], capture_output=True, text=True,
+                         env=env, timeout=timeout)
+    return out.returncode, out.stdout + out.stderr
+
+
+def train_cli_phase():
+    """(f) ``python -m repro_torch.launch.train --arch granite-3-2b --reduce
+    --steps 40`` as a subprocess; then with a checkpoint directory and
+    ``--fail-at 20`` (must fail), and a rerun that resumes: its final loss
+    equals the uninterrupted one's."""
+    import tempfile
+
+    base = ["--arch", TRAIN_ARCH, "--reduce", "--steps", str(TRAIN_CLI_STEPS)]
+    stdout, secs = run_module("repro_torch.launch.train", base, timeout=600)
+    final = stdout.strip().splitlines()[-1]
+    with tempfile.TemporaryDirectory() as ck:
+        rc, text = run_module_may_fail("repro_torch.launch.train",
+                                       base + ["--ckpt-dir", ck, "--fail-at",
+                                               str(TRAIN_CLI_FAIL_AT)], timeout=600)
+        check(rc != 0 and f"simulated node failure at step {TRAIN_CLI_FAIL_AT}" in text,
+              f"launch.train --fail-at: exit {rc}")
+        again, secs2 = run_module("repro_torch.launch.train", base + ["--ckpt-dir", ck],
+                                  timeout=600)
+    rerun = again.strip().splitlines()[-1]
+    print(f"  python -m repro_torch.launch.train {' '.join(base)} ({secs:.1f} s with start-up): "
+          f"{final}; with --fail-at {TRAIN_CLI_FAIL_AT}: exit {rc}; the rerun ({secs2:.1f} s): "
+          f"{rerun}")
+    check(final.startswith("final loss: ") and rerun == final,
+          f"launch.train rerun {rerun!r} vs {final!r}")
+    return {"final": final, "rerun": rerun, "seconds": secs}
+
+
+def train_mods(mods):
+    """``mods`` with what the training phase reads."""
+    from repro_torch.configs import ARCHS, ModelConfig, ShapeConfig
+    from repro_torch.launch.train import opt_config
+    from repro_torch.models import layers, losses
+    from repro_torch.training import train_loop
+    from repro_torch.training.data import DataConfig, make_batch
+    from repro_torch.training.optimizer import OptConfig
+
+    return SimpleNamespace(**vars(mods), ARCHS=ARCHS, ModelConfig=ModelConfig,
+                           ShapeConfig=ShapeConfig, layers=layers, losses=losses,
+                           train_loop=train_loop, DataConfig=DataConfig, make_batch=make_batch,
+                           OptConfig=OptConfig, opt_config=opt_config)
+
+
+def train_phase(torch, mods, card):
+    """Phase 14: training on the card, (a)–(f)."""
+    out = {}
+    t0 = time.perf_counter()
+    print("  (a) the ten reduced archs, one train step, card vs the port's CPU path:")
+    out["reduced"] = train_parity_reduced(torch, mods)
+    print("  (b) flash attention's backward and the chunked cross-entropy at full width:")
+    out.update(flash_xent_phase(torch, mods))
+    print("  (c) granite-3-2b trains at full width:")
+    out["full_width"] = full_width_train(torch, mods, card)
+    print("  (d) restart:")
+    out["restart"] = restart_phase()
+    print("  (e) int8 gradient compression:")
+    out["compression"] = compression_phase(torch, mods)
+    print("  (f) the command line:")
+    out["cli"] = train_cli_phase()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  training phase: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2537,6 +3064,9 @@ def main() -> int:
     families = family_phase(torch, mods, card)
     print(f"  families phase: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"families": {"card": card, **families}}))
+    print(f"training (repro_torch.training, models.losses, launch.train) on {card}:")
+    train = train_phase(torch, train_mods(mods), card)
+    print(json.dumps({"train": {"card": card, **train}}, default=float))
 
     def entry(name, source, replaces, launches, case, extra=(), **notes):
         out = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2656,4 +3186,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--restart-check"]:
+        sys.exit(restart_check(sys.argv[2]))
     sys.exit(main())

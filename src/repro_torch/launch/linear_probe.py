@@ -48,7 +48,8 @@ def probe_tokens(cfg, reduce: bool) -> np.ndarray:
 def features(model, cfg, tokens: np.ndarray) -> np.ndarray:
     """Final hidden states of every token, (tokens, d_model) float32 on the host."""
     toks = torch.as_tensor(tokens, device=model.device)
-    hidden, _, _ = transformer.forward_hidden(model, toks, cfg)
+    with torch.no_grad():
+        hidden, _, _ = transformer.forward_hidden(model, toks, cfg)
     return hidden.reshape(-1, cfg.d_model).float().cpu().numpy()
 
 

@@ -1,5 +1,4 @@
-"""Block registry, ported from the JAX package's ``repro.models.blocks``,
-forward only.
+"""Block registry, ported from the JAX package's ``repro.models.blocks``.
 
 Every architecture is a sequence of block types: ``dense`` (GQA attn +
 MLP), ``moe`` (attn + fine-grained MoE), ``mla_moe`` (DeepSeek-V2 MLA attn
@@ -60,9 +59,9 @@ class Attention(SpecModule):
 def _qkv(p, x, cfg):
     b, s, _ = x.shape
     dh = cfg.head_dim_actual
-    q = x @ p.w_q
-    k = x @ p.w_k
-    v = x @ p.w_v
+    q = layers.matmul(x, p.w_q)
+    k = layers.matmul(x, p.w_k)
+    v = layers.matmul(x, p.w_v)
     if "b_q" in p.specs:
         q, k, v = q + p.b_q, k + p.b_k, v + p.b_v
     return (
@@ -106,7 +105,7 @@ def _self_attn(p, x, cfg, mode, cache, pos, causal=True):
             q, k, v, causal=causal,
             chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv,
         )
-    return out.reshape(b, q.shape[1], -1) @ p.w_o, cache
+    return layers.matmul(out.reshape(b, q.shape[1], -1), p.w_o), cache
 
 
 def _attn_cache_shapes(cfg, batch, max_seq, dtype=None):

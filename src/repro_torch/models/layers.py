@@ -1,13 +1,14 @@
-"""Core layers, forward only: norms, RoPE, attention (plain, chunked,
-decode) and MLPs, ported from the JAX package's ``repro.models.layers``.
+"""Core layers: norms, RoPE, attention (plain, chunked flash with its
+backward, decode) and MLPs, ported from the JAX package's
+``repro.models.layers``.
 
 Weight layout as in the reference: attention projections are stored FLAT,
 (d_model, H·Dh), and heads are recovered by reshape inside the block. The
 functions take plain tensors; ``RMSNorm``, ``LayerNorm`` and ``MLP`` hold
 their parameters as ``SpecModule``s declared by the same spec functions the
-reference uses. The flash backward (the reference's custom VJP) belongs to
-the training item (ROADMAP item 10c): everything here runs without
-gradients.
+reference uses. The chunked attention is a ``torch.autograd.Function``
+whose backward recomputes the probabilities per chunk pair (the
+reference's custom VJP); everything else is differentiated by autograd.
 """
 from __future__ import annotations
 
@@ -127,7 +128,8 @@ def _chunk_bias(qi, ki, chunk_q, chunk_kv, sk, causal, device):
 
 
 def _flash_fwd_impl(qs, ks, vs, causal, sk):
-    """qs (b,nq,cq,hkv,g,d); ks/vs (b,nk,ck,hkv,·) -> out (b,nq,cq,hkv,g,dv).
+    """qs (b,nq,cq,hkv,g,d); ks/vs (b,nk,ck,hkv,·) -> (out (b,nq,cq,hkv,g,dv),
+    m, l (b,nq,hkv,g,cq) f32: each row's running max and softmax sum).
 
     Causal with cq == ck skips the chunk pairs strictly above the diagonal
     (no FLOPs), as the reference's ``lax.cond`` does.
@@ -137,7 +139,7 @@ def _flash_fwd_impl(qs, ks, vs, causal, sk):
     dv = vs.shape[-1]
     scale = 1.0 / math.sqrt(d)
     skippable = causal and cq == ck
-    outs = []
+    outs, ms, ls = [], [], []
     for qi in range(nq):
         qc = qs[:, qi]
         m = torch.full((b, hkv, g, cq), -1e30, dtype=torch.float32, device=qs.device)
@@ -159,12 +161,69 @@ def _flash_fwd_impl(qs, ks, vs, causal, sk):
             m = m_new
         out = (acc / torch.clamp(l, min=1e-20)[..., None]).to(vs.dtype)
         outs.append(out.permute(0, 3, 1, 2, 4))  # (b, cq, hkv, g, dv)
-    return torch.stack(outs, 1)
+        ms.append(m)
+        ls.append(l)
+    return torch.stack(outs, 1), torch.stack(ms, 1), torch.stack(ls, 1)
+
+
+def _flash_bwd_impl(q, k, v, out, m, l, dout, causal, sk):
+    """The flash backward, chunk-tiled (Dao et al.), as the reference's
+    ``_flash_bwd``: p is recomputed per chunk pair from the saved row max and
+    sum; with Δ = rowsum(do ∘ o), dv = pᵀ do, dp = do vᵀ, ds = p ∘ (dp − Δ),
+    dq = ds k, dk = dsᵀ q. Pairs above the diagonal are skipped as in the
+    forward. Everything accumulates in f32; the gradients are cast to their
+    inputs' dtypes."""
+    b, nq, cq, hkv, g, d = q.shape
+    nk, ck = k.shape[1], k.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    skippable = causal and cq == ck
+    linv = 1.0 / torch.clamp(l, min=1e-20)  # (b,nq,hkv,g,cq)
+    delta = torch.einsum("bnqhgd,bnqhgd->bnhgq", dout.float(), out.float())
+    dk = torch.zeros((nk,) + k[:, 0].shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros((nk,) + v[:, 0].shape, dtype=torch.float32, device=q.device)
+    dqs = []
+    for qi in range(nq):
+        qc, doc = q[:, qi], dout[:, qi].float()
+        mc, lic, dc = m[:, qi], linv[:, qi], delta[:, qi]
+        dq = torch.zeros((b, cq, hkv, g, d), dtype=torch.float32, device=q.device)
+        for ki in range(nk):
+            if skippable and ki > qi:
+                continue
+            kc, vc = k[:, ki], v[:, ki]
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qc, kc).float()
+            s = s * scale + _chunk_bias(qi, ki, cq, ck, sk, causal, q.device)
+            p = torch.exp(s - mc[..., None]) * lic[..., None]  # normalised probs
+            dv[ki] += torch.einsum("bhgqk,bqhgd->bkhd", p, doc)
+            dp = torch.einsum("bqhgd,bkhd->bhgqk", doc, vc.float())
+            ds = p * (dp - dc[..., None]) * scale
+            dq += torch.einsum("bhgqk,bkhd->bqhgd", ds, kc.float())
+            dk[ki] += torch.einsum("bhgqk,bqhgd->bkhd", ds, qc.float())
+        dqs.append(dq)
+    return (torch.stack(dqs, 1).to(q.dtype), dk.transpose(0, 1).to(k.dtype),
+            dv.transpose(0, 1).to(v.dtype))
+
+
+class _Flash(torch.autograd.Function):
+    """Chunked flash attention with O(S·d) residuals: the forward saves
+    (q, k, v, out, m, l), the backward recomputes the scores per chunk pair
+    (the reference's ``_flash`` custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, qs, ks, vs, causal, sk):
+        out, m, l = _flash_fwd_impl(qs, ks, vs, causal, sk)
+        ctx.save_for_backward(qs, ks, vs, out, m, l)
+        ctx.causal, ctx.sk = causal, sk
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        dq, dk, dv = _flash_bwd_impl(*ctx.saved_tensors, dout, ctx.causal, ctx.sk)
+        return dq, dk, dv, None, None
 
 
 def _chunked_attention(q, k, v, causal, chunk_q, chunk_kv):
-    """Flash attention forward over (chunk_q, chunk_kv) tiles: O(chunk²)
-    score memory, for prompts longer than ``chunk_q``."""
+    """Flash attention over (chunk_q, chunk_kv) tiles: O(chunk²) score
+    memory in both directions, for sequences longer than ``chunk_q``."""
     b, sq, h, d = q.shape
     dv = v.shape[-1]
     sk = k.shape[1]
@@ -179,7 +238,7 @@ def _chunked_attention(q, k, v, causal, chunk_q, chunk_kv):
     qs = q.reshape(b, nq, chunk_q, hkv, g, d)
     ks = k.reshape(b, nk, chunk_kv, hkv, d)
     vs = v.reshape(b, nk, chunk_kv, hkv, dv)
-    out = _flash_fwd_impl(qs, ks, vs, causal, sk)
+    out = _Flash.apply(qs, ks, vs, causal, sk)
     out = out.reshape(b, nq * chunk_q, h, dv)[:, :sq]
     return out.to(v.dtype)
 
@@ -197,6 +256,12 @@ def promote(*tensors):
     for t in tensors[1:]:
         dtype = torch.promote_types(dtype, t.dtype)
     return tuple(t.to(dtype) for t in tensors)
+
+
+def matmul(a, b):
+    """``a @ b`` in the operands' common dtype (``promote``): an f32
+    activation (after an f32 bias) against a bf16 weight computes in f32."""
+    return torch.matmul(*promote(a, b))
 
 
 def decode_attention(q, k_cache, v_cache, length):
@@ -237,14 +302,14 @@ def mlp_spec(cfg, d_in=None, d_ff=None):
 def apply_mlp(p, x, cfg):
     """``p`` maps w_in, w_out (and w_gate) to tensors. ``jax.nn.gelu``
     defaults to the tanh approximation, and so does this."""
-    h = x @ p["w_in"]
+    h = matmul(x, p["w_in"])
     if cfg.activation == "swiglu":
-        h = F.silu(x @ p["w_gate"]) * h
+        h = F.silu(matmul(x, p["w_gate"])) * h
     elif cfg.activation == "geglu":
-        h = F.gelu(x @ p["w_gate"], approximate="tanh") * h
+        h = F.gelu(matmul(x, p["w_gate"]), approximate="tanh") * h
     else:  # gelu
         h = F.gelu(h, approximate="tanh")
-    return h @ p["w_out"]
+    return matmul(h, p["w_out"])
 
 
 class MLP(SpecModule):

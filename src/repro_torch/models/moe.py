@@ -1,5 +1,5 @@
 """Fine-grained Mixture-of-Experts (DeepSeek-MoE style) with sort-based
-dispatch, ported from the JAX package's ``repro.models.moe``, forward only.
+dispatch, ported from the JAX package's ``repro.models.moe``.
 
 Token→expert assignments are ordered by a stable sort of the expert ids,
 tokens are gathered into a static (E, capacity, D) buffer (overflow goes to
@@ -15,9 +15,12 @@ width ``num_shared_experts · moe_d_ff``.
 from __future__ import annotations
 
 import contextlib
+import functools
+from types import SimpleNamespace
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers
 from repro_torch.models.spec import ParamSpec, SpecModule
@@ -127,10 +130,18 @@ def _chunks(x, cfg):
 def apply_moe(p, x, cfg, record=None):
     """x (B, S, D) -> (y, aux_loss). Dispatch runs in sequence chunks to
     bound the sort/buffer working set; the aux loss is the chunks' mean.
-    A list ``record`` gets one entry of what the dispatch did: (expert ids
-    (T, k), probs (T, E) f32, the (token, slot) pairs dropped for capacity
-    over the chunks)."""
-    ys, auxs, routed = zip(*(_dispatch_combine(p, xc, cfg) for xc in _chunks(x, cfg)))
+    Under autograd each chunk's dispatch is checkpointed (the reference's
+    ``jax.checkpoint`` of ``run_chunk``): the backward recomputes it from
+    the chunk's tokens, routing included. A list ``record`` gets one entry
+    of what the dispatch did: (expert ids (T, k), probs (T, E) f32, the
+    (token, slot) pairs dropped for capacity over the chunks)."""
+    dispatch = _dispatch_combine
+    if torch.is_grad_enabled() and (x.requires_grad or p.router.requires_grad):
+        dispatch = functools.partial(checkpoint, _dispatch_combine, use_reentrant=False)
+    # the weights as this call sees them (a caller's cast copies), so that the
+    # recompute in the backward reads the same tensors
+    w = SimpleNamespace(**{name: getattr(p, name) for name in ("router", "w_in", "w_gate", "w_out")})
+    ys, auxs, routed = zip(*(dispatch(w, xc, cfg) for xc in _chunks(x, cfg)))
     y = torch.cat(ys).reshape(x.shape)
     if cfg.num_shared_experts:
         y = y + p.shared(x)

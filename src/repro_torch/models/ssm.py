@@ -1,5 +1,4 @@
-"""Mamba2 (SSD) block, ported from the JAX package's ``repro.models.ssm``,
-forward only.
+"""Mamba2 (SSD) block, ported from the JAX package's ``repro.models.ssm``.
 
 Prefill and train use the chunked SSD algorithm: within-chunk interactions
 are dense L×L products, across-chunk state is a short Python loop over
@@ -10,8 +9,11 @@ write the state and the conv cache into ``cache`` in place.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers
 from repro_torch.models.spec import ParamSpec, SpecModule
@@ -76,9 +78,33 @@ def _gated_out(p, y, z, cfg):
     return y @ p.out_proj
 
 
+def _ssd_chunk(state, xcv, dts, bs, cs, a, tmask):
+    """One SSD chunk in f32: (carried state (B,H,N,P), the chunk's
+    y (B,L,H,P)) from its x (B,L,H,P), dt (B,L,H), B and C (B,L,N)."""
+    xcv, dts, bs, cs = (t.float() for t in (xcv, dts, bs, cs))
+    da = dts * a  # (B,L,H) <= 0
+    cum = torch.cumsum(da, dim=1)  # inclusive
+    # --- intra-chunk (dense) ---
+    scores = torch.einsum("bln,bmn->blm", cs, bs)  # (B,L,L) t,s
+    decay = torch.exp(cum[:, :, None, :] - cum[:, None, :, :])  # (B,L,L,H)
+    m = torch.where(tmask[None, :, :, None], scores[..., None] * decay, 0.0)
+    m = m * dts[:, None, :, :]
+    y_intra = torch.einsum("blmh,bmhp->blhp", m, xcv)
+    # --- inter-chunk (carried state) ---
+    y_inter = torch.einsum("bln,bhnp->blhp", cs, state) * torch.exp(cum)[..., None]
+    # --- state update ---
+    tot = cum[:, -1, :]  # (B,H)
+    w = torch.exp(tot[:, None, :] - cum) * dts  # (B,L,H)
+    s_c = torch.einsum("bln,blhp->bhnp", bs, w[..., None] * xcv)
+    state = torch.exp(tot)[:, :, None, None] * state + s_c
+    return state, y_intra + y_inter
+
+
 def apply_mamba2(p, x, cfg, chunk=SSD_CHUNK, cache=None):
     """x (B,S,D) -> (B,S,D). Chunked SSD scan; with ``cache``, the final
-    state and the conv cache are written into it (prefill)."""
+    state and the conv cache are written into it (prefill). Under autograd
+    each chunk is checkpointed (the reference's ``jax.checkpoint`` of
+    ``chunk_step``)."""
     b, s, _ = x.shape
     inner, n, h, pd = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     z, xbc_raw, dt = _split_proj(p, x, cfg)
@@ -97,27 +123,14 @@ def apply_mamba2(p, x, cfg, chunk=SSD_CHUNK, cache=None):
     cc = pad_chunks(cmat.to(x.dtype), l)
     tmask = torch.ones(l, l, dtype=torch.bool, device=x.device).tril()  # t >= s
 
+    step = _ssd_chunk
+    if torch.is_grad_enabled() and xh.requires_grad:
+        step = functools.partial(checkpoint, _ssd_chunk, use_reentrant=False)
     state = torch.zeros((b, h, n, pd), dtype=torch.float32, device=x.device)
     ys = []
     for c in range(nc):
-        xcv, dts, bs, cs = (t[:, c].float() for t in (xh, dtc, bc, cc))
-        # xcv (B,L,H,P), dts (B,L,H), bs/cs (B,L,N)
-        da = dts * a  # (B,L,H) <= 0
-        cum = torch.cumsum(da, dim=1)  # inclusive
-        # --- intra-chunk (dense) ---
-        scores = torch.einsum("bln,bmn->blm", cs, bs)  # (B,L,L) t,s
-        decay = torch.exp(cum[:, :, None, :] - cum[:, None, :, :])  # (B,L,L,H)
-        m = torch.where(tmask[None, :, :, None], scores[..., None] * decay, 0.0)
-        m = m * dts[:, None, :, :]
-        y_intra = torch.einsum("blmh,bmhp->blhp", m, xcv)
-        # --- inter-chunk (carried state) ---
-        y_inter = torch.einsum("bln,bhnp->blhp", cs, state) * torch.exp(cum)[..., None]
-        # --- state update ---
-        tot = cum[:, -1, :]  # (B,H)
-        w = torch.exp(tot[:, None, :] - cum) * dts  # (B,L,H)
-        s_c = torch.einsum("bln,blhp->bhnp", bs, w[..., None] * xcv)
-        state = torch.exp(tot)[:, :, None, None] * state + s_c
-        ys.append(y_intra + y_inter)
+        state, y_c = step(state, xh[:, c], dtc[:, c], bc[:, c], cc[:, c], a, tmask)
+        ys.append(y_c)
     y = torch.stack(ys, 1).reshape(b, nc * l, h, pd)[:, :s]
     y = y + xv.reshape(b, s, h, pd).float() * p.d_skip.float()[:, None]
     y = y.reshape(b, s, inner).to(x.dtype)

@@ -1,5 +1,6 @@
-"""Model assembler, inference only, ported from the JAX package's
-``repro.models.transformer``.
+"""Model assembler, ported from the JAX package's
+``repro.models.transformer``: the forward, the training loss and
+mixed-precision casts, prefill and KV-cache decode.
 
 ``cfg.types`` (one block type per layer) is factored into
 ``(period, num_periods, tail)`` exactly as the reference does, because the
@@ -13,18 +14,26 @@ period ``r``; its cache is entry ``r`` of the stacked slot cache, a view
 that prefill and decode write in place. An encoder–decoder model
 (whisper) also holds ``encoder.blocks`` and ``encoder.final_norm``.
 
-``loss_fn`` and ``cast_for_compute`` are the training item (ROADMAP Queue 1
-item 10c).
+Training runs ``loss_fn`` with autograd: each module computes on bf16
+copies of its f32 matrices (``cast_for_compute``), made inside its period,
+and each period is checkpointed under ``cfg.remat == "block"``. Serving
+(``logits_from_hidden``, ``prefill``, ``decode_step``) runs under
+``torch.no_grad`` on f32 weights.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
+import functools
+import itertools
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
-from repro_torch.models import blocks, layers
+from repro_torch.models import blocks, layers, losses
 from repro_torch.models.spec import ParamSpec, SpecModule, iter_specs
 
 SHARED_TYPES = {"zamba_attn"}  # weight-shared across occurrences
@@ -189,45 +198,132 @@ def _sinusoidal(positions, d):
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
-def _embed(params, tokens, cfg):
-    x = params.embed[tokens]
+def _embed(params, tokens, cfg, cast=False):
+    """Embedding rows (of the table's ``cast_for_compute`` copy when
+    ``cast``), plus sinusoidal positions when ``pos_embed`` is absolute,
+    times √d, which is rounded to the rows' dtype first, as the reference's
+    ``jnp.asarray(√d, x.dtype)`` is (45.25 for d = 2048 in bf16)."""
+    x = (_cast(params.embed, cfg) if cast else params.embed)[tokens]
     if cfg.pos_embed == "absolute":
         pos = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
         x = x + _sinusoidal(pos, cfg.d_model).to(x.dtype)
-    return x * math.sqrt(cfg.d_model)
+    return x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
 
 
-def _encode(params, frames, cfg):
+def _casts(t, cfg) -> bool:
+    """Whether ``cast_for_compute`` copies ``t``: an f32 matrix (ndim >= 2)
+    when ``cfg.dtype`` is bfloat16."""
+    return cfg.dtype == "bfloat16" and t.dtype == torch.float32 and t.ndim >= 2
+
+
+def _cast(t, cfg):
+    return t.to(torch.bfloat16) if _casts(t, cfg) else t
+
+
+def cast_for_compute(module, cfg) -> dict:
+    """Mixed precision, per module: {name: bf16 copy} of every f32 parameter
+    of ``module`` with ndim >= 2 when ``cfg.dtype`` is bfloat16 (empty
+    otherwise); vectors (norms, biases, gates) stay f32. The copies are
+    differentiable, so gradients flow back to the f32 masters. Run the module
+    on them with ``torch.func.functional_call``."""
+    return {name: p.to(torch.bfloat16) for name, p in module.named_parameters()
+            if _casts(p, cfg)}
+
+
+@contextlib.contextmanager
+def record_compute_dtypes(model):
+    """While open, the yielded ``collections.Counter`` counts, by dtype, the
+    matrices (parameters with ndim >= 2) that each layer and encoder block
+    of ``model`` computes with, once per call: the checkpoint's recompute
+    counts again. Under ``cast_for_compute`` every one is a bf16 copy; the
+    outputs are unchanged."""
+    seen = collections.Counter()
+
+    def count(block, _args, names):
+        seen.update(functools.reduce(getattr, name.split("."), block).dtype for name in names)
+
+    units = list(model.layers) + (list(model.encoder.blocks) if model.cfg.is_encdec else [])
+    hooks = []
+    for block in dict.fromkeys(units):  # a weight-shared block once
+        names = [name for name, p in block.named_parameters() if p.ndim >= 2]
+        hooks.append(block.register_forward_pre_hook(functools.partial(count, names=names)))
+    try:
+        yield seen
+    finally:
+        for hook in hooks:
+            hook.remove()
+
+
+def _call(module, cast, cfg, *args):
+    """``module(*args)``, on its ``cast_for_compute`` copies when ``cast``."""
+    if not cast:
+        return module(*args)
+    return torch.func.functional_call(module, cast_for_compute(module, cfg), args)
+
+
+def _encode(params, frames, cfg, cast=False, remat=False):
     """The encoder stack over (B, T, D) frames (sinusoidal positions when
-    ``pos_embed`` is absolute), then its final norm."""
+    ``pos_embed`` is absolute), then its final norm; each block is one
+    checkpointed period under ``remat``."""
     if cfg.pos_embed == "absolute":
         pos = torch.arange(frames.shape[1], device=frames.device)[None, :]
         frames = frames + _sinusoidal(pos, cfg.d_model).to(frames.dtype)
     for block in params.encoder.blocks:
-        frames, _, _ = blocks.apply_block(cfg, "enc", block, frames)
+        run = functools.partial(_call, block, cast, cfg)
+        if remat:
+            frames, _, _ = checkpoint(run, frames, use_reentrant=False)
+        else:
+            frames, _, _ = run(frames)
     return params.encoder.final_norm(frames)
 
 
-@torch.no_grad()
-def forward_hidden(params, tokens, cfg, mode="train", caches=None, pos=0, aux=None):
+def _periods(params):
+    """Runs of layer indices that the reference scans as one period body:
+    each repetition of the main period, then each tail layer alone."""
+    keys = [(group, rep) for group, _, rep in params.slots]
+    return [list(run) for _, run in itertools.groupby(range(len(keys)), keys.__getitem__)]
+
+
+def _run_period(params, cfg, period, mode, caches, pos, aux, cast, x):
+    """The layers of one period on ``x``: (x, their summed aux loss)."""
+    aux_loss = 0.0
+    for i in period:
+        group, slot, rep = params.slots[i]
+        cache = None
+        if caches is not None:
+            cache = {k: v[rep] for k, v in caches[group][f"cache{slot}"].items()}
+        x, _, al = _call(params.layers[i], cast, cfg, x, mode, cache, pos, aux)
+        aux_loss = aux_loss + al
+    return x, aux_loss
+
+
+def forward_hidden(params, tokens, cfg, mode="train", caches=None, pos=0, aux=None,
+                   cast=False):
     """Token ids -> final hidden states. Returns (hidden, caches, aux_loss:
     the blocks' summed MoE losses); prefill and decode write ``caches`` in
     place. ``aux`` holds the modality stubs (``patches``, ``enc_frames``),
     cast to the compute dtype. The encoder runs on ``enc_frames`` in train
     and prefill only: decode's cross-attention reads the ``ck``/``cv``
     caches, so the reference's per-step encoder pass is skipped (the same
-    output)."""
-    x = _embed(params, tokens, cfg)
+    output).
+
+    Autograd records the forward when the weights require gradients (the
+    serving entry points run it under ``torch.no_grad``). ``cast`` computes
+    each module on its ``cast_for_compute`` copies, made inside the module's
+    period. In train mode with gradients enabled and ``cfg.remat ==
+    "block"``, each period (``_periods``) runs under non-reentrant
+    ``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of the
+    scanned period body: the backward recomputes it, casts included."""
+    remat = mode == "train" and cfg.remat == "block" and torch.is_grad_enabled()
+    x = _embed(params, tokens, cfg, cast)
     if aux is not None:
         aux = {k: (v.to(x.dtype) if torch.is_tensor(v) else v) for k, v in aux.items()}
         if cfg.is_encdec and "enc_frames" in aux and mode != "decode":
-            aux["enc_out"] = _encode(params, aux["enc_frames"], cfg)
+            aux["enc_out"] = _encode(params, aux["enc_frames"], cfg, cast, remat)
     aux_total = 0.0
-    for layer, block, (group, slot, rep) in zip(cfg.types, params.layers, params.slots):
-        cache = None
-        if caches is not None:
-            cache = {k: v[rep] for k, v in caches[group][f"cache{slot}"].items()}
-        x, _, aux_loss = blocks.apply_block(cfg, layer, block, x, mode, cache, pos, aux)
+    for period in _periods(params):
+        run = functools.partial(_run_period, params, cfg, period, mode, caches, pos, aux, cast)
+        x, aux_loss = checkpoint(run, x, use_reentrant=False) if remat else run(x)
         aux_total = aux_total + aux_loss
     x = params.final_norm(x)
     return x, caches, aux_total
@@ -239,6 +335,24 @@ def logits_from_hidden(params, hidden, cfg):
     logits = hidden @ params.head.T
     pad_cols = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab_size
     return logits.float().masked_fill(pad_cols, -1e30)
+
+
+def loss_fn(params, batch, cfg):
+    """batch: tokens (B, S), targets (B, S), optional enc_frames / patches /
+    mask. -> (nll + 0.01·aux_loss, {"nll", "aux_loss"}), 0-d f32 tensors.
+    The matrices compute in ``cfg.dtype`` (``cast_for_compute``); the
+    cross-entropy is chunked (``losses.chunked_softmax_xent``)."""
+    aux = {k: batch[k] for k in ("enc_frames", "patches") if k in batch}
+    hidden, _, aux_loss = forward_hidden(
+        params, batch["tokens"], cfg, mode="train", aux=aux or None, cast=True
+    )
+    nll = losses.chunked_softmax_xent(
+        hidden, _cast(params.head, cfg), batch["targets"], cfg.vocab_size,
+        chunk=cfg.xent_chunk, mask=batch.get("mask"),
+    )
+    aux_loss = torch.as_tensor(aux_loss, dtype=torch.float32, device=nll.device)
+    total = nll + 0.01 * aux_loss
+    return total, {"nll": nll, "aux_loss": aux_loss}
 
 
 # ---------------------------------------------------------------------------

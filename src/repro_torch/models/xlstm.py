@@ -1,6 +1,8 @@
-"""xLSTM blocks, ported from the JAX package's ``repro.models.xlstm``,
-forward only: mLSTM (matrix memory, chunked-parallel) and sLSTM (scalar
-memory, recurrent).
+"""xLSTM blocks, ported from the JAX package's ``repro.models.xlstm``:
+mLSTM (matrix memory, chunked-parallel) and sLSTM (scalar memory,
+recurrent). Both are differentiated by autograd, without the reference's
+inner checkpoints (the period checkpoint of ``cfg.remat`` bounds their
+activations).
 
 mLSTM runs in a chunkwise-parallel form structurally identical to SSD:
 within-chunk terms are dense L×L products gated by cumulative forget-gate

@@ -807,3 +807,51 @@ def test_reduced_families_on_card_match_cpu(cuda, arch):
     assert len(outs["cuda"][3]) == len(outs["cpu"][3]) == 6 * moe_layers
     for got, want in zip(outs["cuda"][3], outs["cpu"][3]):
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "deepseek-v2-236b", "gemma-7b",
+                                  "granite-3-2b", "granite-3-8b", "llama-3.2-vision-90b",
+                                  "qwen1.5-32b", "whisper-small", "xlstm-1.3b", "zamba2-7b"])
+def test_reduced_train_step_on_card_matches_cpu(cuda, arch):
+    """One ``loss_fn`` step with gradients at ``reduced_config`` in f32
+    compute on the card against the port's CPU path from the same weights
+    and batch (``chip_smoke.py`` phase 14 (a)): the loss within 1e-5
+    relative, every gradient within 1e-4·max|g|, the MoE routing's expert
+    ids equal first; then the arch's own bf16 compute on the card gives a
+    finite loss and finite gradients."""
+    import dataclasses
+
+    from repro_torch.models import moe, transformer
+
+    base, cpu = port_model(arch)
+    cfg = dataclasses.replace(base, dtype="float32")
+    card = transformer.Transformer(base, cuda)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, cfg.vocab_size, (2, 17))
+    batch = {"tokens": torch.as_tensor(toks[:, :-1]), "targets": torch.as_tensor(toks[:, 1:])}
+    if cfg.vision_seq:
+        batch["patches"] = torch.as_tensor(
+            0.1 * rng.standard_normal((2, cfg.vision_seq, cfg.d_model)), dtype=torch.float32)
+    if cfg.is_encdec:
+        batch["enc_frames"] = torch.as_tensor(
+            0.1 * rng.standard_normal((2, cfg.encoder_seq, cfg.d_model)), dtype=torch.float32)
+    outs = {}
+    for model, c in ((cpu, cfg), (card, cfg), (card, base)):
+        model.requires_grad_(True).zero_grad(set_to_none=True)
+        with moe.record_routing(model) as routed:
+            loss, _ = transformer.loss_fn(model, {k: v.to(model.device) for k, v in batch.items()},
+                                          c)
+        loss.backward()
+        grads = {n: (torch.zeros_like(p) if p.grad is None else p.grad).cpu()
+                 for n, p in model.named_parameters()}
+        outs[(model.device.type, c.dtype)] = (float(loss.detach()), grads,
+                                              [r[0].cpu() for r in routed])
+    (l_c, g_c, r_c), (l_g, g_g, r_g) = outs[("cpu", "float32")], outs[("cuda", "float32")]
+    assert len(r_g) == len(r_c) and all(torch.equal(a, b) for a, b in zip(r_g, r_c))
+    assert l_g == pytest.approx(l_c, rel=1e-5)
+    gmax = max(float(g.abs().max()) for g in g_c.values())
+    for name, want in g_c.items():
+        torch.testing.assert_close(g_g[name], want, atol=1e-4 * gmax, rtol=0)
+    l_b, g_b, _ = outs[("cuda", "bfloat16")]
+    assert np.isfinite(l_b) and all(bool(torch.isfinite(g).all()) for g in g_b.values())

@@ -154,7 +154,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.launch import linear_probe, serve, serve_solver
     from repro_torch.launch import solve as launch_solve
+    from repro_torch.launch import train
     from repro_torch.models import blocks, params_from_reference, transformer
+    from repro_torch.training import train_loop
+    from repro_torch.training.checkpoint import restore as restore_checkpoint
+    from repro_torch.training.data import DataConfig, make_batch
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = reduced_config(get_config("granite-3-2b"))
@@ -174,6 +178,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         lambda: blocks.make_block(cfg, "dense"),
         lambda: transformer.init_cache(cfg, 1, 4),
         lambda: params_from_reference(cfg, {}),
+        lambda: train.main(["--arch", "granite-3-2b", "--reduce", "--steps", "1"]),
+        lambda: train_loop.train(cfg, train_loop.TrainConfig(num_steps=1),
+                                 DataConfig(cfg.vocab_size, 4, 1)),
+        lambda: make_batch(DataConfig(cfg.vocab_size, 4, 1), 0),
+        lambda: restore_checkpoint("unused", 0, {}),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
@@ -241,7 +250,9 @@ def test_port_never_imports_jax_or_repro():
             "models/spec.py", "models/layers.py", "models/blocks.py", "models/transformer.py",
             "models/convert.py", "models/costs.py", "serving/decode.py", "launch/serve.py",
             "launch/linear_probe.py", "models/moe.py", "models/ssm.py",
-            "models/xlstm.py"} <= ported
+            "models/xlstm.py", "models/losses.py", "training/optimizer.py",
+            "training/data.py", "training/checkpoint.py", "training/train_loop.py",
+            "distributed/compression.py", "launch/train.py"} <= ported
     offenders = {
         str(f.relative_to(ROOT)): sorted(_imports(f) & {"jax", "jaxlib", "repro"})
         for f in files
@@ -258,7 +269,9 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.serving, repro_torch.launch.serve_solver, repro_torch.configs, "
         "repro_torch.models, repro_torch.models.convert, repro_torch.serving.decode, "
         "repro_torch.launch.serve, repro_torch.launch.linear_probe, repro_torch.models.moe, "
-        "repro_torch.models.ssm, repro_torch.models.xlstm, repro_torch.models.blocks\n"
+        "repro_torch.models.ssm, repro_torch.models.xlstm, repro_torch.models.blocks, "
+        "repro_torch.models.losses, repro_torch.training.train_loop, repro_torch.launch.train, "
+        "repro_torch.distributed\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
     )
