@@ -86,17 +86,19 @@
    1.9), kernels on) on a one-rank ``nccl`` mesh in this process, held
    against the unsharded kernels-on solver (1e-5·max|x|, residual history,
    ``iterations_to_tol``; bit-equality printed), with one fused packed pass
-   per epoch and the audited epoch's collectives; then ``launch.solve --mode
-   matfree --mesh 4 --backend gloo`` as a subprocess (4 ranks on the one
-   card) at the matrix-free path's two sizes (PCG at n=16384), held against phase 5's
+   per epoch and the audited epoch's collectives; then, on one spawn of 4
+   ``gloo`` ranks on the one card (``run_ranks(run_commands, ...)``), the
+   rank bodies of ``launch.solve --mode matfree --mesh 4`` at the
+   matrix-free path's two sizes (PCG at n=16384), held against phase 5's
    single-host solves (2.5e-4·max|x|), each rank at most 1.15/4 of their
    bytes, one fused packed pass per epoch per rank and the audited epoch;
    the dense ``solve_sharded`` at the Table 1 width on one ``nccl`` rank and
    on 4 ``gloo`` ranks (1e-5 apart), ``solve_sharded_2d`` on a (2, 2) mesh
    (1e-4 from one rank, at n = 2328: the model axis halves n); and the
-   serving command line's Poisson trace through ``serve_solver --mesh 4
-   --backend gloo`` (every request answered, within 2.5e-4·max|x| of a
-   direct sharded solve); then times the SpMM kernels on a rank's shard;
+   serving command line's Poisson trace at 64 requests through
+   ``serve_solver --mesh 4 --backend gloo`` (every request answered,
+   within 2.5e-4·max|x| of a direct sharded solve in the same run); then
+   times the SpMM kernels on a rank's shard;
 12. runs the model stack's serving path (``repro_torch.models``,
    ``serving.decode``, ``launch.serve``): the four dense archs' reduced
    configs at 3 layers on the card against the port's CPU path from the
@@ -162,7 +164,28 @@
    gradient compression on the reference test's tiny config; (f) ``python
    -m repro_torch.launch.train`` with ``--fail-at`` and a rerun that ends
    at the uninterrupted final loss; prints a ``{"train": ...}`` line;
-15. prints the kernel table as one JSON line (with a row per kernel of one
+15. checks the mesh rules and the dry run (``distributed.sharding``,
+   ``launch.dryrun``, ``launch.multihost``, ``checkpoint.restore(...,
+   shardings=)``): (a) ``python -m repro_torch.launch.dryrun --both-meshes``
+   as a subprocess over its fake 256/512-rank groups, 64 cells ok and 16
+   skipped exactly where ``configs.shapes.applicable`` says, each cell's
+   per-rank argument GiB printed; (b) xlstm-1.3b x ``long_500k`` at full
+   width (batch 1, 524288 positions), the one cell one card holds whole, on
+   the one-rank ``nccl`` mesh of ``make_debug_mesh``: the dry run's argument
+   bytes equal the reference's 4,593,267,368, ``dryrun.materialize`` places
+   its arguments on the card under their placements (weights from a CUDA
+   ``torch.Generator``): the allocations ask for exactly that number, and
+   ``memory_allocated`` grows by it within the caching allocator's rounding
+   (512 bytes per tensor, and an unsplit remainder of at most 1 MiB per
+   tensor over 1 MiB); one decode step on them, its ms and its peak minus
+   the arguments (the temporaries the dry run does not count);
+   (c) a reduced granite-3-2b train state saved with ``checkpoint.save`` and
+   restored onto that mesh with ``shardings=`` from ``named_shardings``,
+   bit-equal under the placements asked for; (d) ``multihost.initialize`` in
+   two child processes, one with ``COORDINATOR_ADDRESS``/``NUM_PROCESSES=1``/
+   ``PROCESS_ID=0`` (an ``nccl`` group), one without them (no group), both
+   {0, 1, 1, 1}; prints a ``{"dryrun": ...}`` line;
+16. prints the kernel table as one JSON line (with a row per kernel of one
    warm session update, of one served batch, of the multi-device runs and
    of the probe's solve, carrying the measured case of the same shapes), the
    card line again, and the ``{"ok": true, "device": ...}`` line last.
@@ -260,6 +283,10 @@ MESH_N, MESH_SPARSITY, MESH_SEED, MESH_RHS_SEED = 2327, 0.9985, 5, 11
 MESH_RANKS = 4
 MESH_RELERR_GATE = 2.5e-4
 MESH_FRACTION_GATE = 1.15 / MESH_RANKS
+# the mesh replay serves the serving command line's Poisson trace at 64
+# requests, not the serving phases' 256: each 4-rank gloo batch takes seconds,
+# and its gates compare every answer with the same run's direct solve
+MESH_SERVE_REQUESTS = 64
 DENSE_SHARDED_ATOL, DENSE_2D_ATOL = 1e-5, 1e-4
 
 # phase 12: the model stack's serving path at granite-3-2b's full width
@@ -330,6 +357,23 @@ TRAIN_CLI_STEPS, TRAIN_CLI_FAIL_AT = 40, 20
 TINY_TRAIN = dict(name="tiny", family="dense", num_layers=2, d_model=32, num_heads=2,
                   num_kv_heads=2, d_ff=64, vocab_size=64, attn_chunk_q=0, xent_chunk=16,
                   remat="none")
+
+# phase 15: the mesh rules and the dry run (distributed/sharding.py,
+# launch/dryrun.py, launch/multihost.py, checkpoint.restore(shardings=)).
+# The sweep: 10 archs x 4 shapes x 2 meshes, long_500k only where
+# configs.shapes.applicable runs it (zamba2-7b, xlstm-1.3b)
+DRYRUN_COUNTS = {"ok": 64, "skip": 16, "fail": 0}
+# the one cell one card holds whole, at full width on a (1, 1) mesh, and the
+# reference's per-device argument bytes of it: the JAX package's build_cell on
+# AbstractMesh((1, 1), ("data", "model")), each argument struct at its shard
+# shape (tests/test_torch_dryrun.py::_reference_bytes computes it that way):
+#   JAX_PLATFORMS=cpu PYTHONPATH=src:tests python -c "import test_torch_dryrun as t; \
+#       print(t._reference_bytes('xlstm-1.3b', 'long_500k', (1, 1)))"
+DRYRUN_CARD_CELL = ("xlstm-1.3b", "long_500k")
+JAX_CPU_CARD_CELL_BYTES = 4_593_267_368
+ALLOC_ROUND = 512  # the caching allocator rounds each block up to 512 bytes
+ALLOC_LARGE_REMAINDER = 1 << 20  # and leaves a large block whole when <= 1 MiB would remain
+RESTORE_STEPS = 2  # reduced granite-3-2b trained this far, so the moments are not zeros
 
 TRISOLVE_SRC = "src/repro_torch/csrc/trisolve.cu"
 PROJECT_SRC = "src/repro_torch/csrc/project.cu"
@@ -1645,20 +1689,24 @@ def mesh_d1_phase(torch, ops, prepare, tmp):
             "nccl_all_reduce_ms": nccl_ms, "op": sharded.op, "dense": dense}
 
 
-def mesh_d4_run(label, n, epochs, single, tmp):
-    """``launch.solve --mode matfree --mesh 4 --backend gloo`` on the card:
-    held against the phase-5 single-host run of the same system."""
-    args = ["--n", str(n), "--m", str(n), "--blocks", "8", "--mode", "matfree", "--kernels",
+def mesh_d4_args(label, n, epochs, tmp):
+    """``launch.solve --mode matfree --mesh 4 --backend gloo``'s arguments
+    for one of phase 5's systems, its record written to ``tmp/label.npz``."""
+    return ["--n", str(n), "--m", str(n), "--blocks", "8", "--mode", "matfree", "--kernels",
             "--rhs", "32", "--epochs", str(epochs), "--gamma", "2.0", "--eta", "1.9",
             "--mesh", str(MESH_RANKS), "--backend", "gloo", "--device", "cuda", "--audit",
             "--profile", "--out", str(tmp / f"{label}.npz")]
-    _, seconds = run_module("repro_torch.launch.solve", args, timeout=900)
+
+
+def mesh_d4_run(label, n, epochs, single, tmp):
+    """A ``launch.solve --mesh 4`` run on the card (``mesh_d4_args``), held
+    against the phase-5 single-host run of the same system."""
     run = load_run(tmp / f"{label}.npz")
     rec = run["record"]
     rel = float(np.abs(run["x"] - single["x"]).max() / np.abs(single["x"]).max())
     whole = single["prep"].memory_bytes
     nk, pcg = n * 32, rec["gram_solver"] == "pcg"
-    print(f"  {MESH_RANKS} gloo ranks, n={n}: {seconds:.1f} s in all, gram "
+    print(f"  {MESH_RANKS} gloo ranks, n={n}: gram "
           f"solver {rec['gram_solver']}, max |x - x_single| / max|x| {rel:.3e} (gate "
           f"{MESH_RELERR_GATE:g}), final_residual_sq_max {rec['final_residual_sq_max']:.6e}")
     for r in rec["ranks"]:
@@ -1681,8 +1729,41 @@ def mesh_d4_run(label, n, epochs, single, tmp):
         check(r["audit"] == {"ops": 1 + pcg, "payload_elems": nk + 32 * pcg}
               and r["audit_tol"] == {"ops": 2 + pcg, "payload_elems": nk + 32 * (1 + pcg)},
               f"mesh n={n}: rank {r['rank']} audited epoch {r['audit']} / {r['audit_tol']}")
-    return {"rel_vs_single": rel, "seconds": seconds, "ranks": rec["ranks"],
+    return {"rel_vs_single": rel, "ranks": rec["ranks"],
             "gram_solver": rec["gram_solver"], "record": rec}
+
+
+def mesh_served(card, requests):
+    """The serving command line's Poisson trace of ``requests`` requests
+    through ``serve_solver --mesh 4 --backend gloo``:
+    every request answered, each within 2.5e-4·max|x| of a direct sharded
+    solve of its column in the same run, the fused packed pass launched."""
+    tol = JAX_CPU_SERVING["matfree"]["poisson_tol"]
+    stdout, serve_seconds = run_module("repro_torch.launch.serve_solver", [
+        "--n", "2327", "--m", "2327", "--num-blocks", "8", "--mode", "matfree", "--kernels",
+        "--gamma", "2.0", "--eta", "1.9", "--epochs", str(STREAM_CAP), "--tol", repr(tol),
+        "--requests", str(requests), "--rate", str(SERVE_RATE),
+        "--max-batch", str(SERVE_BATCH), "--max-wait-ms", str(SERVE_WAIT_MS),
+        "--mesh", str(MESH_RANKS), "--backend", "gloo", "--device", "cuda"], timeout=900)
+    served = json.loads(next(line for line in stdout.splitlines()
+                             if line.startswith("mesh: "))[len("mesh: "):])
+    for line in stdout.splitlines()[:6]:
+        print(f"    | {line}")
+    print(f"  served Poisson trace, {MESH_RANKS} gloo ranks [{card}]: {served['answered']} of "
+          f"{served['requests']} answered, {served['req_per_s']:.1f} req/s, latency ms p50 "
+          f"{served['p50_ms']:.1f} p99 {served['p99_ms']:.1f}; {served['batches']} batches, rank "
+          f"0 launches {served['launches_rank0']}; worst |x - x_direct| / max|x| "
+          f"{served['worst_rel_diff_vs_direct']:.3e} (gate {MESH_RELERR_GATE:g}), "
+          f"{served['bit_equal_vs_direct']} bit-equal; {serve_seconds:.1f} s in all")
+    served["seconds"] = serve_seconds
+    check(served["answered"] == served["requests"] == requests and served["failed"] == 0,
+          f"served mesh: {served['answered']} answered of {requests}")
+    check(served["worst_rel_diff_vs_direct"] <= MESH_RELERR_GATE,
+          f"served mesh: off its direct solve by {served['worst_rel_diff_vs_direct']}")
+    check(served["launches_rank0"]["spmm_fused_packed"] >= served["batches"]
+          and served["launches_rank0"]["spmm_fused"] == 0,
+          f"served mesh: rank 0 launches {served['launches_rank0']}")
+    return served
 
 
 def mesh_phase(torch, ops, prepare, mf_small, mf_big, card):
@@ -1696,27 +1777,34 @@ def mesh_phase(torch, ops, prepare, mf_small, mf_big, card):
     with tempfile.TemporaryDirectory() as tmp_name:
         tmp = Path(tmp_name)
         d1 = mesh_d1_phase(torch, ops, prepare, tmp)
-        # --mesh takes --mode matfree (as the reference's command line); at
-        # n = 16384 the Gram solver's own auto must resolve PCG, as phase 5's did
-        d4 = {"n2327": mesh_d4_run("n2327", 2327, 300, mf_small, tmp),
-              "n16384": mesh_d4_run("n16384", 16384, 100, mf_big, tmp)}
-        check(d4["n16384"]["gram_solver"] == "pcg", "mesh n=16384: expected the PCG Gram solver")
+        print(f"  one-rank nccl part: {time.perf_counter() - t_phase:.1f} s")
+        # the 4-rank runs on one spawn of 4 ranks: launch.solve --mesh 4 at
+        # phase 5's two sizes (--mesh takes --mode matfree, as the reference's
+        # command line; at n = 16384 the Gram solver's own auto must resolve
+        # PCG, as phase 5's did), then the dense sharded and 2-D solvers
         dense_args = ["--blocks", "8", "--rhs", "32", "--epochs", "80", "--device", "cuda",
                       "--backend", "gloo"]
         t0 = time.perf_counter()
         tmesh.run_ranks(tmesh.run_commands, MESH_RANKS, "gloo", "cuda", ([
+            ("repro_torch.launch.solve", mesh_d4_args("n2327", 2327, 300, tmp)),
+            ("repro_torch.launch.solve", mesh_d4_args("n16384", 16384, 100, tmp)),
             ("repro_torch.launch.sharded_solve", ["--n", "2327", "--m", "9308", "--mesh", "4",
                                                   *dense_args, "--out", str(tmp / "d4.npz")]),
             ("repro_torch.launch.sharded_solve", ["--n", "2328", "--m", "9312", "--mesh", "2",
                                                   "--model", "2", *dense_args,
                                                   "--out", str(tmp / "d2x2.npz")]),
         ],))
-        dense_seconds = time.perf_counter() - t0
+        spawn_seconds = time.perf_counter() - t0
+        print(f"  the 4-rank runs on one spawn of {MESH_RANKS} gloo ranks: {spawn_seconds:.1f} s "
+              f"in all, spawn included")
+        d4 = {"n2327": mesh_d4_run("n2327", 2327, 300, mf_small, tmp),
+              "n16384": mesh_d4_run("n16384", 16384, 100, mf_big, tmp)}
+        check(d4["n16384"]["gram_solver"] == "pcg", "mesh n=16384: expected the PCG Gram solver")
         d4_dense, d2x2 = load_run(tmp / "d4.npz"), load_run(tmp / "d2x2.npz")
     diff = float(np.abs(d4_dense["x"] - d1["dense"]["table1"]["x"]).max())
     diff_2d = float(np.abs(d2x2["x"] - d1["dense"]["even"]["x"]).max())
     print(f"  dense solve_sharded, {MESH_RANKS} gloo ranks at m=9308 n=2327 and "
-          f"solve_sharded_2d on (2, 2) at m=9312 n=2328 ({dense_seconds:.1f} s, spawn included): "
+          f"solve_sharded_2d on (2, 2) at m=9312 n=2328: "
           f"max |x_4 - x_1| {diff:.3e} (atol {DENSE_SHARDED_ATOL:g}), max |x_2d - x_1| "
           f"{diff_2d:.3e} (atol {DENSE_2D_ATOL:g}); solve s per rank "
           f"{[round(r['solve_seconds'], 4) for r in d4_dense['record']['ranks']]} (1-D), "
@@ -1726,30 +1814,7 @@ def mesh_phase(torch, ops, prepare, mf_small, mf_big, card):
     check(diff <= DENSE_SHARDED_ATOL, f"dense sharded: 4 ranks off one rank by {diff}")
     check(diff_2d <= DENSE_2D_ATOL, f"2-D: off one rank by {diff_2d}")
 
-    tol = JAX_CPU_SERVING["matfree"]["poisson_tol"]
-    stdout, serve_seconds = run_module("repro_torch.launch.serve_solver", [
-        "--n", "2327", "--m", "2327", "--num-blocks", "8", "--mode", "matfree", "--kernels",
-        "--gamma", "2.0", "--eta", "1.9", "--epochs", str(STREAM_CAP), "--tol", repr(tol),
-        "--requests", str(SERVE_REQUESTS), "--rate", str(SERVE_RATE),
-        "--max-batch", str(SERVE_BATCH), "--max-wait-ms", str(SERVE_WAIT_MS),
-        "--mesh", str(MESH_RANKS), "--backend", "gloo", "--device", "cuda"], timeout=900)
-    served = json.loads(next(line for line in stdout.splitlines()
-                             if line.startswith("mesh: "))[len("mesh: "):])
-    for line in stdout.splitlines()[:6]:
-        print(f"    | {line}")
-    print(f"  served Poisson trace, {MESH_RANKS} gloo ranks [{card}]: {served['answered']} of "
-          f"{served['requests']} answered, {served['req_per_s']:.1f} req/s, latency ms p50 "
-          f"{served['p50_ms']:.1f} p99 {served['p99_ms']:.1f}; {served['batches']} batches, rank "
-          f"0 launches {served['launches_rank0']}; worst |x - x_direct| / max|x| "
-          f"{served['worst_rel_diff_vs_direct']:.3e} (gate {MESH_RELERR_GATE:g}), "
-          f"{served['bit_equal_vs_direct']} bit-equal; {serve_seconds:.1f} s in all")
-    check(served["answered"] == served["requests"] == SERVE_REQUESTS and served["failed"] == 0,
-          f"served mesh: {served['answered']} answered of {SERVE_REQUESTS}")
-    check(served["worst_rel_diff_vs_direct"] <= MESH_RELERR_GATE,
-          f"served mesh: off its direct solve by {served['worst_rel_diff_vs_direct']}")
-    check(served["launches_rank0"]["spmm_fused_packed"] >= served["batches"]
-          and served["launches_rank0"]["spmm_fused"] == 0,
-          f"served mesh: rank 0 launches {served['launches_rank0']}")
+    served = mesh_served(card, MESH_SERVE_REQUESTS)
     seconds = time.perf_counter() - t_phase
     print("  the 4-rank times staged every all-reduce through gloo and host memory: they "
           "measure the program on one card, not NCCL")
@@ -1758,8 +1823,8 @@ def mesh_phase(torch, ops, prepare, mf_small, mf_big, card):
         "d1": {k: v for k, v in d1.items() if k not in ("op", "dense")},
         "d4": {label: {k: v for k, v in run.items() if k != "record"}
                for label, run in d4.items()},
-        "dense": {"max_abs_diff_4_vs_1": diff, "max_abs_diff_2d_vs_1": diff_2d,
-                  "seconds": dense_seconds},
+        "dense": {"max_abs_diff_4_vs_1": diff, "max_abs_diff_2d_vs_1": diff_2d},
+        "spawn_seconds": spawn_seconds,
         "served": served, "seconds": seconds,
     }
     print(json.dumps({"mesh": summary, "card": card}, default=float))
@@ -2943,6 +3008,262 @@ def train_phase(torch, mods, card):
     return out
 
 
+def dryrun_sweep(tmp):
+    """(a) ``python -m repro_torch.launch.dryrun --both-meshes`` in a
+    subprocess (its fake 256/512-rank group never meets this process's
+    groups): 64 cells ok and 16 skipped, exactly where ``applicable`` says."""
+    from repro_torch.configs import SHAPES, applicable, get_config
+
+    stdout, seconds = run_module("repro_torch.launch.dryrun",
+                                 ["--both-meshes", "--artifacts", str(tmp / "dryrun")], timeout=600)
+    lines = [line for line in stdout.splitlines() if line.startswith("[")]
+    counts = {k: sum(line.startswith(f"[{k:4s}]") for line in lines) for k in DRYRUN_COUNTS}
+    records = [json.loads(p.read_text()) for p in sorted((tmp / "dryrun").glob("*.json"))]
+    misplaced = []
+    for r in records:
+        arch, shape_name, _ = r["cell"].split("__")
+        if (r["status"] == "skip") == applicable(get_config(arch), SHAPES[shape_name])[0]:
+            misplaced.append(r["cell"])
+    for line in lines:
+        print(f"    | {line}")
+    print(f"  dry run over the fake groups: {seconds:.1f} s wall with start-up; cells {counts} "
+          f"(expected {DRYRUN_COUNTS}); skips where applicable says: {not misplaced}")
+    check(counts == DRYRUN_COUNTS, f"dry run: cells {counts}, expected {DRYRUN_COUNTS}")
+    check(not misplaced, f"dry run: skipped against applicable: {misplaced}")
+    per_rank = {r["cell"]: r["memory"]["argument_bytes"] for r in records if r["status"] == "ok"}
+    return {"seconds": seconds, "counts": counts, "argument_bytes": per_rank}
+
+
+def dryrun_card_cell(torch, mesh, tmp):
+    """(b) xlstm-1.3b x long_500k at full width (batch 1, 524288 positions)
+    on the one-rank nccl mesh: the dry run's bytes for the cell against the
+    reference's, its arguments materialised on the card under their
+    placements against that number, and one decode step on them."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.distributed.sharding import mesh_sizes
+    from repro_torch.launch import dryrun
+
+    arch, shape_name = DRYRUN_CARD_CELL
+    run_module("repro_torch.launch.dryrun", ["--arch", arch, "--shape", shape_name, "--data", "1",
+                                             "--model", "1", "--artifacts", str(tmp / "card")],
+               timeout=300)
+    rec = json.loads((tmp / "card" / f"{arch}__{shape_name}__pod1_d1m1.json").read_text())
+    want = rec["memory"]["argument_bytes"]
+    check(want == JAX_CPU_CARD_CELL_BYTES,
+          f"dry run {arch} x {shape_name}: {want} argument bytes, the reference's "
+          f"{JAX_CPU_CARD_CELL_BYTES}")
+
+    fn, args, placements, _ = dryrun.build_cell(get_config(arch), SHAPES[shape_name],
+                                                 mesh_sizes(mesh))
+    # NCCL's first scatter and broadcast, before the count
+    warm = torch.zeros(8, 8, device="cuda")
+    for place in ((Shard(0), Shard(1)), (Replicate(), Replicate())):
+        distribute_tensor(warm, mesh, place)
+    del warm
+    before = settled_memory(torch)
+    blocks_before = active_blocks(torch)
+    real = dryrun.materialize(args, placements, mesh, torch.Generator(device="cuda").manual_seed(0))
+    after = settled_memory(torch)
+    grown, asked = after[0] - before[0], after[1] - before[1]
+    tensors = list(real[0].parameters()) + [t for a in real[1:] if a is not None
+                                            for t in tensor_leaves(a)]
+    sizes = [t.numel() * t.element_size() for t in tensors]
+    held = sum(sizes)
+    # each block rounds up to 512 bytes, and a block of the large pool is
+    # not split when at most 1 MiB would remain
+    slack = sum(ALLOC_ROUND + (ALLOC_LARGE_REMAINDER if n > ALLOC_LARGE_REMAINDER else 0)
+                for n in sizes)
+    ours = {t.untyped_storage().data_ptr() for t in tensors}
+    blocks = active_blocks(torch)
+    in_blocks = sum(size for addr, size in blocks.items() if addr in ours)
+    other = sorted((size for addr, size in blocks.items()
+                    if addr not in blocks_before and addr not in ours), reverse=True)
+    print(f"  {arch} x {shape_name} on the (1, 1) nccl mesh: the dry run's argument bytes "
+          f"{want} (the reference's {JAX_CPU_CARD_CELL_BYTES}); materialised on the card "
+          f"under the placements, {len(tensors)} tensors holding {held} bytes: the "
+          f"allocations asked for {asked} more bytes (gate: {want}); memory_allocated grew "
+          f"{grown} (gate: {want} to {want + slack}), {in_blocks} of them in the tensors' own "
+          f"blocks; other blocks that appeared: {len(other)}, {sum(other)} bytes")
+    check(held == want, f"{arch}: the materialised tensors hold {held} bytes, not {want}")
+    check(asked == want, f"{arch}: the allocations asked for {asked} bytes, not {want}")
+    check(want <= grown <= want + slack, f"{arch}: memory_allocated grew {grown}, not {want}")
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        nxt, caches = fn(*real)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    temp = torch.cuda.max_memory_allocated() - base
+    finite = all(bool(torch.isfinite(t.float()).all()) for t in tensor_leaves(caches))
+    print(f"  one decode step at position {int(real[3])}: {times[0]:.2f} ms (first), "
+          f"{times[1]:.2f} ms (second); peak minus the arguments {temp} bytes (the "
+          f"temporaries the dry run does not count); next ids {nxt.flatten().tolist()}, "
+          f"states finite {finite}")
+    check(tuple(nxt.shape) == (1, 1) and 0 <= int(nxt) < get_config(arch).vocab_size,
+          f"{arch}: next ids {nxt}")
+    check(finite, f"{arch}: non-finite states after the decode step")
+    del real, nxt, caches
+    torch.cuda.empty_cache()
+    return {"argument_bytes": want, "memory_grown": grown, "requested_grown": asked,
+            "slack": slack, "tensors": len(tensors),
+            "step_ms": times, "temp_bytes": temp}
+
+
+def settled_memory(torch) -> tuple[int, int]:
+    """(``memory_allocated``, the bytes the live allocations asked for)
+    once they hold still: NCCL keeps the inputs of a finished collective
+    until its watchdog thread releases them, so read every 0.2 s until two
+    readings agree (at most 10 s)."""
+    def read():
+        return (torch.cuda.memory_allocated(),
+                torch.cuda.memory_stats().get("requested_bytes.all.current", -1))
+
+    torch.cuda.synchronize()
+    last = read()
+    for _ in range(50):
+        time.sleep(0.2)
+        now = read()
+        if now == last:
+            break
+        last = now
+    return last
+
+
+def active_blocks(torch) -> dict:
+    """{address: size} of the caching allocator's live blocks."""
+    return {b["address"]: b["size"] for seg in torch.cuda.memory_snapshot()
+            for b in seg["blocks"] if b["state"] == "active_allocated"}
+
+
+def tensor_leaves(tree):
+    """The tensors of a tensor or of nested dicts of them."""
+    from repro_torch.training.checkpoint import flatten
+
+    if not isinstance(tree, dict):
+        return [tree]
+    return [t for t in flatten(tree).values() if t is not None]
+
+
+def elastic_restore(torch, mesh, tmp):
+    """(c) a reduced granite-3-2b train state (RESTORE_STEPS steps in)
+    saved with ``checkpoint.save`` and restored onto the nccl mesh with
+    ``shardings=``: every leaf a DTensor on the card under the placements
+    asked for, bit-equal to what was saved."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.distributed.sharding import NamedSharding, named_shardings
+    from repro_torch.models import transformer
+    from repro_torch.training import checkpoint as ckpt_lib
+    from repro_torch.training import train_loop
+    from repro_torch.training.checkpoint import flatten
+    from repro_torch.training.data import DataConfig
+
+    cfg = reduced_config(get_config(TRAIN_ARCH))
+    tcfg = train_loop.TrainConfig(num_steps=RESTORE_STEPS, log_every=1)
+    state, _ = train_loop.train(cfg, tcfg, DataConfig(cfg.vocab_size, 16, 4, seed=0),
+                                device="cuda")
+    saved = train_loop.state_tree(state)
+    ckpt_lib.save(str(tmp / "ckpt"), RESTORE_STEPS, saved)
+    psh = named_shardings(transformer.param_specs(cfg), mesh)
+    shardings = {"params": psh, "opt": {"mu": psh, "nu": psh,
+                                        "step": NamedSharding(mesh, (Replicate(), Replicate()))}}
+    back = flatten(ckpt_lib.restore(str(tmp / "ckpt"), RESTORE_STEPS, train_loop.state_like(state),
+                                    shardings=shardings))
+    want, asked = flatten(saved), flatten(shardings)
+    bad = [k for k, t in back.items()
+           if not (isinstance(t, DTensor) and t.device.type == "cuda"
+                   and t.placements == asked[k].placements and t.device_mesh is mesh
+                   and np.array_equal(t.full_tensor().cpu().numpy(), want[k]))]
+    sharded = sum(any(p.is_shard() for p in asked[k].placements) for k in back)
+    print(f"  elastic restore: reduced {TRAIN_ARCH} state after {RESTORE_STEPS} steps, "
+          f"{len(back)} leaves ({sharded} with a Shard placement) restored onto the nccl mesh "
+          f"with shardings=: bit-equal under the placements asked for {not bad}")
+    check(back.keys() == want.keys() and not bad, f"elastic restore: leaves off {bad}")
+    return {"leaves": len(back), "sharded": sharded}
+
+
+MULTIHOST_CHILD = (
+    "import json, torch.distributed as dist\n"
+    "from repro_torch.launch import multihost\n"
+    "out = multihost.initialize()\n"
+    "out['backend'] = dist.get_backend() if dist.is_initialized() else None\n"
+    "if dist.is_initialized():\n"
+    "    dist.destroy_process_group()\n"
+    "print(json.dumps(out))\n"
+)
+
+
+def multihost_phase():
+    """(d) ``multihost.initialize()`` in two child processes at once: with
+    ``COORDINATOR_ADDRESS=127.0.0.1:<free port>``, ``NUM_PROCESSES=1``,
+    ``PROCESS_ID=0`` an nccl group; without them no group; both report one
+    process of one card."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    base = {k: v for k, v in os.environ.items()
+            if k not in ("COORDINATOR_ADDRESS", "NUM_PROCESSES", "PROCESS_ID")}
+    base["PYTHONPATH"] = str(SRC)
+    procs = {label: subprocess.Popen([sys.executable, "-c", MULTIHOST_CHILD],
+                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                     env={**base, **extra})
+             for label, extra in (("coordinator", {"COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+                                                   "NUM_PROCESSES": "1", "PROCESS_ID": "0"}),
+                                  ("alone", {}))}
+    got = {}
+    for label, proc in procs.items():
+        stdout, stderr = proc.communicate(timeout=300)
+        if proc.returncode:
+            print(stderr[-4000:], file=sys.stderr)
+        check(proc.returncode == 0, f"multihost.initialize ({label}) exited {proc.returncode}")
+        got[label] = json.loads(stdout.splitlines()[-1])
+    one = {"process_index": 0, "process_count": 1, "local_devices": 1, "global_devices": 1}
+    print(f"  multihost.initialize in a child: with a coordinator {got['coordinator']}; "
+          f"alone {got['alone']}")
+    check(got["coordinator"] == {**one, "backend": "nccl"},
+          f"multihost with a coordinator: {got['coordinator']}")
+    check(got["alone"] == {**one, "backend": None}, f"multihost alone: {got['alone']}")
+    return got
+
+
+def dryrun_phase(torch, card):
+    """Phase 15: the mesh rules and the dry run, (a)–(d)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as tmesh
+
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        print("  (a) the sweep:")
+        out["sweep"] = dryrun_sweep(tmp)
+        mesh = tmesh.make_debug_mesh(device="cuda", backend="nccl")
+        try:
+            dist.barrier()  # NCCL's own buffers before the byte count
+            print(f"  (b) the one cell one card holds [{card}]:")
+            out["card_cell"] = dryrun_card_cell(torch, mesh, tmp)
+            print("  (c) elastic restore:")
+            out["restore"] = elastic_restore(torch, mesh, tmp)
+        finally:
+            dist.destroy_process_group()
+    print("  (d) multi-host start:")
+    out["multihost"] = multihost_phase()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  dry-run phase: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3067,6 +3388,12 @@ def main() -> int:
     print(f"training (repro_torch.training, models.losses, launch.train) on {card}:")
     train = train_phase(torch, train_mods(mods), card)
     print(json.dumps({"train": {"card": card, **train}}, default=float))
+    print(f"the mesh rules and the dry run (repro_torch.distributed.sharding, launch.dryrun, "
+          f"launch.multihost, checkpoint.restore(shardings=)) on {card}:")
+    dry = dryrun_phase(torch, card)
+    print(json.dumps({"dryrun": {"card": card, **{k: v for k, v in dry.items() if k != "sweep"},
+                                 "sweep": {k: v for k, v in dry["sweep"].items()
+                                           if k != "argument_bytes"}}}))
 
     def entry(name, source, replaces, launches, case, extra=(), **notes):
         out = {"name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -127,14 +127,15 @@ def params_to_reference(model, values: dict | None = None) -> dict:
 
 def reference_like(model) -> dict:
     """``params_to_reference(model)``'s tree with shape-only (``meta``)
-    tensors for leaves: a like-tree for ``checkpoint.restore`` that copies
-    nothing off the model's device."""
+    tensors of the parameters' dtypes for leaves: a like-tree for
+    ``checkpoint.restore`` that copies nothing off the model's device, and
+    the reference-layout arguments of a dry run."""
     params = dict(model.named_parameters())
     shapes: dict[str, tuple] = {}
     stacked: dict[str, int] = {}
     for path, index, name in _entries(model):
-        shapes[path] = tuple(params[name].shape)
+        shapes[path] = (tuple(params[name].shape), params[name].dtype)
         stacked[path] = stacked.get(path, 0) + (index is not None)
     return unflatten({path: torch.empty(((stacked[path],) if stacked[path] else ()) + shape,
-                                        device="meta")
-                      for path, shape in shapes.items()})
+                                        dtype=dtype, device="meta")
+                      for path, (shape, dtype) in shapes.items()})

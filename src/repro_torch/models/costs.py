@@ -264,6 +264,7 @@ PEAK_FLOPS_BY_TYPE = {"float32": 67e12, "float64": 67e12, "bfloat16": 989e12,
 PEAK_FLOPS = PEAK_FLOPS_BY_TYPE["bfloat16"]  # tensor cores
 PEAK_FLOPS_F32 = PEAK_FLOPS_BY_TYPE["float32"]  # CUDA cores
 HBM_BW = 3.35e12
+HBM_BYTES = 80e9  # 80 GB of HBM
 LINK_BW = 450e9  # NVLink 4: 900 GB/s per card both ways, one direction
 
 

@@ -93,7 +93,8 @@ def _dispatch_combine(p, x_flat, cfg):
     tok_sorted = flat_tok[order]
     g_sorted = flat_g[order]
 
-    counts = torch.bincount(flat_e, minlength=e)  # (E,)
+    # (E,): a count of static length, as the reference's jnp.bincount(length=e)
+    counts = flat_e.new_zeros(e).scatter_add_(0, flat_e, torch.ones_like(flat_e))
     starts = torch.cumsum(counts, 0) - counts
     pos_in_e = torch.arange(t * k, device=x_flat.device) - starts[e_sorted]
     keep = pos_in_e < cap

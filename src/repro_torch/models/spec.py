@@ -6,8 +6,9 @@ Initialization draws each spec with ``draw`` through
 Every parameter is declared once as a ``ParamSpec`` (shape, logical axis
 names, init rule). A spec tree is nested dicts of them, keyed as the
 reference's parameter pytree is, so ``count_params`` walks the same paths.
-The logical axes name the reference's sharding rules; on one card they
-place nothing (the mesh rules wait for ROADMAP item 10d).
+The logical axes name the reference's sharding rules, which
+``distributed.sharding`` maps to specs and DTensor placements on a mesh (the
+dry run's and the elastic restore's); on one card they place nothing.
 
 The port draws from an explicit ``torch.Generator``. It cannot reproduce
 ``jax.random.fold_in`` bits, so parity with the reference's weights goes

@@ -92,12 +92,20 @@ def latest_step(ckpt_dir: str) -> int | None:
     return steps[-1] if steps else None
 
 
-def restore(ckpt_dir: str, step: int, like_tree, device=None):
+def restore(ckpt_dir: str, step: int, like_tree, device=None, shardings=None):
     """The checkpoint in the structure of ``like_tree`` (nested dicts whose
     leaves have the expected shapes), as tensors on ``device`` (the card
-    unless the caller says): the counterpart of the reference's elastic
-    ``shardings=``, for one device."""
-    device = resolve_device(device)
+    unless the caller says). ``shardings`` (a matching tree of
+    ``distributed.sharding.NamedSharding``, e.g. from ``named_shardings``)
+    re-lays each leaf onto any mesh instead, as a DTensor placed by
+    ``distribute_tensor`` (each rank keeps its block): the elastic restore
+    after the worker count changes."""
+    if shardings is not None:
+        from torch.distributed.tensor import distribute_tensor
+
+        placed = flatten(shardings)
+    else:
+        device = resolve_device(device)
     path = os.path.join(ckpt_dir, f"step_{step}")
     with np.load(os.path.join(path, "shards_p0.npz")) as data:
         out = {}
@@ -108,5 +116,9 @@ def restore(ckpt_dir: str, step: int, like_tree, device=None):
             want = tuple(like.shape)
             if tuple(arr.shape) != want:
                 raise ValueError(f"{key}: checkpoint shape {arr.shape} != expected {want}")
-            out[key] = torch.from_numpy(arr).to(device)
+            if shardings is None:
+                out[key] = torch.from_numpy(arr).to(device)
+            else:
+                sh = placed[key]
+                out[key] = distribute_tensor(torch.from_numpy(arr), sh.mesh, sh.placements)
     return unflatten(out)

@@ -94,7 +94,8 @@ def state_like(state) -> dict:
     ``checkpoint.restore``; nothing is copied off the card."""
     like = reference_like(state["params"])
     tree = {"params": like,
-            "opt": {"mu": like, "nu": like, "step": torch.empty((), device="meta")}}
+            "opt": {"mu": like, "nu": like,
+                    "step": torch.empty((), dtype=state["opt"]["step"].dtype, device="meta")}}
     if "residuals" in state:
         tree["residuals"] = like
     return tree

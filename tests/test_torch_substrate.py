@@ -252,7 +252,8 @@ def test_port_never_imports_jax_or_repro():
             "launch/linear_probe.py", "models/moe.py", "models/ssm.py",
             "models/xlstm.py", "models/losses.py", "training/optimizer.py",
             "training/data.py", "training/checkpoint.py", "training/train_loop.py",
-            "distributed/compression.py", "launch/train.py"} <= ported
+            "distributed/compression.py", "launch/train.py", "distributed/sharding.py",
+            "launch/dryrun.py", "launch/multihost.py"} <= ported
     offenders = {
         str(f.relative_to(ROOT)): sorted(_imports(f) & {"jax", "jaxlib", "repro"})
         for f in files
