@@ -19,7 +19,7 @@ from repro_torch.core.projections import batched_mv
 
 def classical_factors(blocks: torch.Tensor, mode: str):
     """Per-block (A_j⁺ (J,n,p), P_j (J,n,n)) — the classical setup costs."""
-    pinvs = torch.linalg.pinv(blocks)
+    pinvs = projections.pinv(blocks)
     Ps = projections.classical_projection(blocks, mode)
     return pinvs, Ps
 

@@ -8,6 +8,9 @@ Unified representation: a factor ``W ∈ R^{p×n}`` such that ``P = I_n − Wᵀ
     — ``P_j = I_n − Q Qᵀ``, the same decomposition idea in the regime where
     the nullspace is non-trivial.
 
+``apply_projection`` is the implicit application ``P v = v − Wᵀ(W v)``
+(never materializes the n×n ``P``); ``materialize`` builds the dense ``P``.
+
 Every function takes one block or a leading batch of blocks (torch's
 linear algebra batches over leading axes where the reference used vmap).
 Factors come back contiguous: the hand kernels read them by raw pointer.
@@ -38,6 +41,21 @@ def batched_mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return M @ v
 
 
+def apply_projection(W: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Implicit ``(I − WᵀW) v`` — two tall-skinny matmuls, no n×n temp.
+    ``v`` is ``(n,)`` or ``(n, k)``; a batched ``W`` (..., p, n) takes a
+    matching batch of ``v``, as the reference's ``.mT`` does."""
+    return v - W.mT @ (W @ v)
+
+
+def pinv(block: torch.Tensor) -> torch.Tensor:
+    """``jnp.linalg.pinv``: singular values below ``10·max(p, n)·eps`` times
+    the largest count as zero (torch's default cutoff is 10x smaller, which
+    keeps noise directions of a near-singular block)."""
+    rtol = 10.0 * max(block.shape[-2:]) * torch.finfo(block.dtype).eps
+    return torch.linalg.pinv(block, rtol=rtol)
+
+
 def materialize(W: torch.Tensor) -> torch.Tensor:
     """Dense ``P = I − WᵀW`` (paper-faithful; O(n²) memory)."""
     n = W.shape[-1]
@@ -54,7 +72,7 @@ def classical_projection(block: torch.Tensor, mode: str) -> torch.Tensor:
     if mode == "wide":
         gram = block @ block.mT
         return eye - block.mT @ torch.linalg.solve(gram, block)
-    return eye - torch.linalg.pinv(block) @ block
+    return eye - pinv(block) @ block
 
 
 def classical_initial(block: torch.Tensor, bvec: torch.Tensor, mode: str) -> torch.Tensor:
@@ -63,4 +81,4 @@ def classical_initial(block: torch.Tensor, bvec: torch.Tensor, mode: str) -> tor
     wide: min-norm solution Aᵀ(AAᵀ)⁻¹b; tall: least-squares A⁺b.
     Batched: block (J, p, n), bvec (J, p) or (J, p, k).
     """
-    return batched_mv(torch.linalg.pinv(block), bvec)
+    return batched_mv(pinv(block), bvec)

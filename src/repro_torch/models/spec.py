@@ -61,6 +61,17 @@ def draw(spec: ParamSpec, generator: torch.Generator, dtype=torch.float32,
     return std * torch.randn(spec.shape, generator=generator, dtype=dtype, device=device)
 
 
+def init_from_specs(spec_tree, generator: torch.Generator, dtype=torch.float32, device=None):
+    """ParamSpec tree → a tree of initialized tensors of the same keys, each
+    leaf drawn with ``draw`` in ``iter_specs`` order (the reference's
+    flattening order; its per-leaf ``fold_in`` keys become successive draws
+    from ``generator``)."""
+    if isinstance(spec_tree, ParamSpec):
+        return draw(spec_tree, generator, dtype, device)
+    return {key: init_from_specs(spec_tree[key], generator, dtype, device)
+            for key in sorted(spec_tree)}
+
+
 class SpecModule(torch.nn.Module):
     """A module whose parameters are the leaves of one spec dict; the specs
     stay beside them so ``init_params`` can draw each one. A nested dict

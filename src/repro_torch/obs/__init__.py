@@ -5,8 +5,8 @@ pure Python and import neither jax nor ``repro``).
 
 Tracing is off unless a ``Tracer`` is passed in (the hot paths test
 ``tracer is None``), metrics are in-process counter bumps behind one lock,
-and spans are host-side only. The collective audit belongs to the
-multi-device slice and raises.
+and spans are host-side only. ``audit_epoch_collectives`` counts the
+all-reduces in one epoch of a sharded solver.
 """
 from repro_torch.obs import clock
 from repro_torch.obs.convergence import (

@@ -216,3 +216,44 @@ def test_partition_level_solvers_match_reference(problem, method):
     np.testing.assert_allclose(x_t.numpy(), np.asarray(x_j), atol=1e-4)
     np.testing.assert_allclose(h_t["residual_sq"][:5].numpy(), np.asarray(h_j["residual_sq"][:5]),
                                rtol=1e-3, atol=_floor(B))
+
+
+@pytest.mark.parametrize("case", ["vector", "columns", "batched"])
+def test_apply_projection_matches_reference(case):
+    """``projections.apply_projection`` (the implicit ``v − Wᵀ(W v)``)
+    against the reference's on the same inputs, 1e-5."""
+    from repro.core import projections as jprojections
+    from repro_torch.core import projections
+
+    rng = np.random.default_rng(3)
+    n, p = 24, 10
+    if case == "batched":
+        W = rng.standard_normal((3, p, n)).astype(np.float32)
+        v = rng.standard_normal((3, n, 4)).astype(np.float32)
+    else:
+        W = np.linalg.qr(rng.standard_normal((n, p)))[0].T.astype(np.float32)
+        v = rng.standard_normal((n,) if case == "vector" else (n, 4)).astype(np.float32)
+    want = np.asarray(jprojections.apply_projection(jnp.asarray(W), jnp.asarray(v)))
+    got = projections.apply_projection(torch.from_numpy(W), torch.from_numpy(v))
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_pinv_cuts_off_where_the_reference_does():
+    """Classical APC's pseudoinverse drops the singular values
+    ``jnp.linalg.pinv`` drops (below 10·max(p, n)·eps of the largest;
+    torch's default cutoff is 10x smaller). One singular value lies between
+    the two cutoffs: the reference zeroes it, and so must the port."""
+    from repro_torch.core import projections
+
+    rng = np.random.default_rng(4)
+    n = 32
+    u = np.linalg.qr(rng.standard_normal((n, n)))[0]
+    v = np.linalg.qr(rng.standard_normal((n, n)))[0]
+    s = np.linspace(1.0, 0.5, n)
+    s[-1] = 3.0 * n * np.finfo(np.float32).eps  # above torch's cutoff, below jax's
+    block = ((u * s) @ v.T).astype(np.float32)[None]
+    want = np.asarray(jnp.linalg.pinv(jnp.asarray(block[0])))
+    got = projections.pinv(torch.from_numpy(block))[0].numpy()
+    assert np.abs(want).max() < 10  # the tiny direction was cut
+    np.testing.assert_allclose(got, want, atol=1e-4 * np.abs(want).max())

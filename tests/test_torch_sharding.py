@@ -230,3 +230,31 @@ def test_elastic_restore_over_two_ranks(tmp_path):
     for rank in range(2):
         np.testing.assert_array_equal(np.load(tmp_path / f"rank{rank}.npy"),
                                       w[2 * rank: 2 * rank + 2])
+
+
+def test_param_spec_exports():
+    """``repro_torch.distributed`` exports ``ParamSpec`` and
+    ``init_from_specs`` as ``repro.distributed`` does: ``models/spec.py``'s
+    objects, no second copy. ``init_from_specs`` gives the reference's tree
+    (keys, shapes, dtypes, the zeros and ones exactly, normal draws at their
+    scale)."""
+    import jax
+
+    from repro.distributed import ParamSpec as JParamSpec, init_from_specs as jinit
+    from repro_torch.distributed import ParamSpec, init_from_specs
+    from repro_torch.models import spec
+
+    assert ParamSpec is spec.ParamSpec and init_from_specs is spec.init_from_specs
+
+    def tree(cls):
+        return {"w": cls((64, 32), ("embed", "mlp"), scale=0.5),
+                "norm": {"g": cls((32,), ("embed",), init="ones"),
+                         "b": cls((32,), ("embed",), init="zeros")}}
+
+    want = jinit(tree(JParamSpec), jax.random.PRNGKey(0))
+    got = init_from_specs(tree(ParamSpec), torch.Generator().manual_seed(0))
+    assert sorted(got) == sorted(want) and sorted(got["norm"]) == sorted(want["norm"])
+    assert got["w"].shape == want["w"].shape and got["w"].dtype == torch.float32
+    assert torch.equal(got["norm"]["g"], torch.ones(32))
+    assert torch.equal(got["norm"]["b"], torch.zeros(32))
+    assert float(got["w"].std()) == pytest.approx(float(np.asarray(want["w"]).std()), rel=0.1)

@@ -238,8 +238,21 @@ def _imports(path: Path) -> set[str]:
     return names
 
 
+def test_obs_docstring_describes_the_audit():
+    """The package docstring says what ``audit_epoch_collectives`` does,
+    not that it raises (it has counted since the multi-device slice)."""
+    from repro_torch import obs
+
+    doc = " ".join(obs.__doc__.split())
+    assert "raises" not in doc
+    assert "``audit_epoch_collectives`` counts the all-reduces" in doc
+
+
 def test_port_never_imports_jax_or_repro():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py"]
+    files += sorted((ROOT / "examples").glob("*_torch.py")) + [ROOT / "tools" / "trace_report_torch.py"]
+    assert {"quickstart_torch.py", "solve_sparse_torch.py", "train_lm_torch.py",
+            "trace_report_torch.py"} <= {f.name for f in files}
     assert len(files) > 20
     ported = {f.relative_to(PORT).as_posix() for f in files if PORT in f.parents}
     assert {"core/dgd.py", "core/cg.py", "core/guard.py", "core/session.py",
