@@ -1,0 +1,9 @@
+"""100 × the column-epochs the ``tol`` mask let run over all column-epochs
+of the closed loop's solves (``solver_active_column_epochs_total`` /
+``solver_column_epochs_total``, the program's process registry)."""
+from perfbench.harness import program
+from perfbench.harness.readers import is_served
+
+
+def read(ctx):
+    return None if is_served(ctx) else program.active_column_share()

@@ -36,6 +36,8 @@ from repro_torch.core.partition import (
     partition_matrix,
 )
 from repro_torch.device import resolve_device, synchronize
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 from repro_torch.sparse.matrix import COOMatrix, PlanMixer, RowMixer
 
 METHODS = ("apc", "dapc", "dgd", "cgnr")
@@ -272,12 +274,64 @@ def _to_numpy(tree):
     return tree.detach().cpu().numpy()
 
 
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in _leaves(v)]
+    return [tree]
+
+
+# the solver's counters: bumped once per solve, on the host, after the fetch
+SOLVER_COUNTERS = {
+    "solver_solves_total": "PreparedSolver.solve calls completed",
+    "solver_epochs_total": "epochs run, the cap included (frozen columns run every epoch)",
+    "solver_column_epochs_total": "epochs x columns, bucket padding included",
+    "solver_active_column_epochs_total":
+        "column-epochs not frozen by tol: the run_consensus mask, from the fetched history",
+    "solver_host_syncs_total":
+        "calls that block the host on the device: each blocking copy in or out, the synchronize",
+    "solver_copy_bytes_total": "bytes copied between host and device, by direction",
+}
+
+
+def active_column_epochs(history: dict, num_epochs: int, k: int, tol) -> int:
+    """Column-epochs the ``tol`` mask let run: column c is active in epoch
+    t iff the residual it started t from (epoch t − 1's, or the initial
+    one) is above tol², compared in the history's dtype as
+    ``run_consensus`` compares it. Without ``tol`` every one is."""
+    if tol is None:
+        return num_epochs * k
+    r = np.asarray(history["residual_sq"]).reshape(num_epochs, -1)
+    r0 = np.asarray(history["initial"]["residual_sq"]).reshape(1, -1)
+    start = np.concatenate([r0, r[:-1]], axis=0)
+    return int(np.count_nonzero(start > start.dtype.type(float(tol) * float(tol))))
+
+
+def count_solve(*, epochs: int, k: int, active: int, moved_in, moved_out) -> None:
+    """Bump the solver's counters in ``repro_torch.obs.metrics.REGISTRY``
+    for one solve that copied
+    the tensors ``moved_in`` to the device and ``moved_out`` back, each in
+    one blocking call, and synchronized once. Counted from the shapes: on a
+    CPU device the same calls are counted, although they cross nothing."""
+    registry = obs_metrics.REGISTRY
+    c = {name: registry.counter(name, help) for name, help in SOLVER_COUNTERS.items()}
+    c["solver_solves_total"].inc()
+    c["solver_epochs_total"].inc(epochs)
+    c["solver_column_epochs_total"].inc(epochs * k)
+    c["solver_active_column_epochs_total"].inc(active)
+    c["solver_host_syncs_total"].inc(len(moved_in) + 1 + len(moved_out))
+    copies = c["solver_copy_bytes_total"]
+    copies.labels(direction="h2d").inc(sum(t.numel() * t.element_size() for t in moved_in))
+    copies.labels(direction="d2h").inc(sum(t.numel() * t.element_size() for t in moved_out))
+
+
 @dataclasses.dataclass
 class PreparedSolver:
     """Partition + per-block factors + projector, cached on one device.
 
     Produced by ``prepare``; reusable (and read-only) across any number of
-    ``solve`` calls. ``num_solves`` counts them.
+    ``solve`` calls. ``num_solves`` counts them. ``tracer`` (a
+    ``repro_torch.obs.Tracer``, or None) records each solve's phases; the
+    solver's counters go to ``repro_torch.obs.metrics.REGISTRY``.
     """
 
     blocks: torch.Tensor  # (J, p, n)
@@ -298,6 +352,7 @@ class PreparedSolver:
     block_eta_weights: Any = dataclasses.field(default=None, repr=False)
     block_spectra: Any = dataclasses.field(default=None, repr=False)
     num_solves: int = 0
+    tracer: Any = dataclasses.field(default=None, repr=False, compare=False)
 
     path = "dense"
 
@@ -361,38 +416,43 @@ class PreparedSolver:
             torch.as_tensor(ev, dtype=dt, device=dev),
         )
 
-    def _solve_phase(self, bvecs, gamma, eta, num_epochs, ref, xbar0, x0, kwargs):
+    def _solve_phase(self, bvecs, gamma, eta, num_epochs, ref, xbar0, x0, kwargs,
+                     phase=obs_trace.untraced):
         """Substitution + consensus for the apc/dapc methods.
 
         ``x0`` warm start: the per-block initial solutions become the
         projection of the prediction onto each block's solution set,
         x_j(0) = x0 + A_j⁺(b_j − A_j x0) — the substitution is linear in its
         RHS, so this reuses the cached factors on the shifted residual. The
-        masked form (x0, mask) zeroes cold columns' shift.
+        masked form (x0, mask) zeroes cold columns' shift. ``phase`` records
+        the substitution (``solver.init``) and the loop (``solver.epochs``).
         """
-        if x0 is not None:
-            xq, mk = x0 if isinstance(x0, tuple) else (x0, None)
-            if mk is not None:
-                xq = torch.where(mk, xq, torch.zeros((), dtype=xq.dtype, device=xq.device))
-            bv_eff = bvecs - self.blocks @ xq
-        else:
-            xq, bv_eff = None, bvecs
-        if self.method == "dapc":
-            Ws, Rs = self.factors
-            x0s = dapc.initial_from_factors(Ws, Rs, bv_eff, self.mode, self.use_kernels)
-        else:
-            x0s = apc.initial_from_pinv(self.factors[0], bv_eff)
-        if xq is not None:
-            x0s = x0s + xq
+        with phase("solver.init"):
+            if x0 is not None:
+                xq, mk = x0 if isinstance(x0, tuple) else (x0, None)
+                if mk is not None:
+                    xq = torch.where(mk, xq, torch.zeros((), dtype=xq.dtype, device=xq.device))
+                bv_eff = bvecs - self.blocks @ xq
+            else:
+                xq, bv_eff = None, bvecs
+            if self.method == "dapc":
+                Ws, Rs = self.factors
+                x0s = dapc.initial_from_factors(Ws, Rs, bv_eff, self.mode, self.use_kernels)
+            else:
+                x0s = apc.initial_from_pinv(self.factors[0], bv_eff)
+            if xq is not None:
+                x0s = x0s + xq
         kind, operand = self.projector
         if kind == "dense":
             apply_fn = apc.make_apply(operand)
         else:
             apply_fn = dapc.make_apply(operand, False, use_kernels=kind == "kernels")
-        return consensus.run_consensus(
-            x0s, apply_fn, gamma, eta, num_epochs,
-            x_ref=ref, blocks=self.blocks, bvecs=bvecs, xbar0=xbar0, **kwargs,
-        )
+        k = bvecs.shape[2] if bvecs.ndim == 3 else 1
+        with phase("solver.epochs", epochs=num_epochs, k=k, tol=kwargs.get("tol")):
+            return consensus.run_consensus(
+                x0s, apply_fn, gamma, eta, num_epochs,
+                x_ref=ref, blocks=self.blocks, bvecs=bvecs, xbar0=xbar0, **kwargs,
+            )
 
     def _operand(self, arr):
         """A host array (or tensor) as a tensor in the solver's dtype/device."""
@@ -423,62 +483,89 @@ class PreparedSolver:
         The right-hand side moves to the device once per solve. The result's
         ``x`` and ``history`` are numpy; ``wall_seconds`` is read after the
         device has finished.
+
+        With a tracer attached, or while ``torch.profiler`` records, the
+        solve records ``solver.solve`` and its phases ``solver.rhs`` (host
+        mixing, the copies in), ``solver.init`` (the substitution),
+        ``solver.epochs`` (the loop, queued without a host sync),
+        ``solver.wait`` and ``solver.fetch`` (the copies out). After the
+        fetch it bumps the ``SOLVER_COUNTERS`` once, on the host.
         """
         if isinstance(num_epochs, SolveOptions):
             return self.solve(b, **num_epochs.kwargs())
-        gamma = self.gamma if gamma is None else gamma
-        eta = self.eta if eta is None else eta
-        per_block = self._resolve_dynamics(dynamics)
         b = np.asarray(b)
-        batched = b.ndim == 2
-        dev, dt = self.device, self.blocks.dtype
-        bvecs = block_rhs(self.mixer, b, dt, dev)
-        ref = None if x_ref is None else self._operand(x_ref)
-        consensus_method = self.method in ("apc", "dapc")
-        if x0 is not None and not consensus_method:
-            raise ValueError(
-                f"x0 warm start needs a consensus method (apc/dapc); "
-                f"this solver runs {self.method!r}"
+        k = b.shape[1] if b.ndim == 2 else 1
+        phase = obs_trace.recorder(self.tracer)  # decided once per solve
+        with phase("solver.solve", method=self.method, k=k, epochs=num_epochs):
+            gamma = self.gamma if gamma is None else gamma
+            eta = self.eta if eta is None else eta
+            per_block = self._resolve_dynamics(dynamics)
+            dev, dt = self.device, self.blocks.dtype
+            consensus_method = self.method in ("apc", "dapc")
+            if x0 is not None and not consensus_method:
+                raise ValueError(
+                    f"x0 warm start needs a consensus method (apc/dapc); "
+                    f"this solver runs {self.method!r}"
+                )
+            tol = kwargs.get("tol")
+            with phase("solver.rhs"):
+                bvecs = block_rhs(self.mixer, b, dt, dev)
+                ref = None if x_ref is None else self._operand(x_ref)
+                moved_in = [bvecs] + ([] if ref is None else [ref])
+                t0 = time.perf_counter()
+                if consensus_method:
+                    xbar0 = kwargs.pop("xbar0", None)
+                    if xbar0 is not None:
+                        xbar0 = self._operand(xbar0)
+                        moved_in.append(xbar0)
+                    warm = None
+                    if isinstance(x0, tuple):
+                        arr, mask = x0
+                        warm = (self._operand(arr),
+                                torch.as_tensor(np.asarray(mask, bool), device=dev))
+                        moved_in += list(warm)
+                    elif x0 is not None:
+                        warm = self._operand(x0)
+                        moved_in.append(warm)
+                    gamma_op, eta_op = self._dynamics_operands(gamma, eta, per_block)
+                    moved_in += [gamma_op, eta_op]
+            if consensus_method:
+                x, hist = self._solve_phase(
+                    bvecs, gamma_op, eta_op, num_epochs, ref, xbar0, warm, kwargs, phase
+                )
+            else:
+                with phase("solver.epochs", epochs=num_epochs, k=k, tol=tol):
+                    part = Partition(self.blocks, bvecs, self.mode)
+                    if self.method == "cgnr":
+                        x, hist = cg.solve_cgnr(part, num_epochs=num_epochs, x_ref=ref, **kwargs)
+                    else:  # dgd
+                        kwargs.setdefault("lr", self.factors[0])
+                        x, hist = dgd.solve_dgd(part, num_epochs=num_epochs, x_ref=ref, **kwargs)
+            with phase("solver.wait"):
+                synchronize(dev)
+            wall = time.perf_counter() - t0
+            self.num_solves += 1
+            with phase("solver.fetch"):
+                x_host = x.detach().cpu().numpy()
+                history = _to_numpy(hist)
+            count_solve(
+                epochs=num_epochs, k=k,
+                active=active_column_epochs(
+                    history, num_epochs, k, tol if consensus_method else None),
+                moved_in=moved_in, moved_out=[x] + _leaves(hist),
             )
-
-        t0 = time.perf_counter()
-        if consensus_method:
-            xbar0 = kwargs.pop("xbar0", None)
-            if xbar0 is not None:
-                xbar0 = self._operand(xbar0)
-            warm = None
-            if isinstance(x0, tuple):
-                arr, mask = x0
-                warm = (self._operand(arr), torch.as_tensor(np.asarray(mask, bool), device=dev))
-            elif x0 is not None:
-                warm = self._operand(x0)
-            gamma_op, eta_op = self._dynamics_operands(gamma, eta, per_block)
-            x, hist = self._solve_phase(
-                bvecs, gamma_op, eta_op, num_epochs, ref, xbar0, warm, kwargs
+            return SolveResult(
+                x=x_host,
+                method=self.method,
+                mode=self.mode,
+                num_blocks=self.num_blocks,
+                num_epochs=num_epochs,
+                history=history,
+                wall_seconds=wall,
+                gamma=gamma if consensus_method else None,
+                eta=eta if consensus_method else None,
+                num_rhs=k,
             )
-        elif self.method == "cgnr":
-            part = Partition(self.blocks, bvecs, self.mode)
-            x, hist = cg.solve_cgnr(part, num_epochs=num_epochs, x_ref=ref, **kwargs)
-        else:  # dgd
-            part = Partition(self.blocks, bvecs, self.mode)
-            kwargs.setdefault("lr", self.factors[0])
-            x, hist = dgd.solve_dgd(part, num_epochs=num_epochs, x_ref=ref, **kwargs)
-        synchronize(dev)
-        wall = time.perf_counter() - t0
-        self.num_solves += 1
-
-        return SolveResult(
-            x=x.detach().cpu().numpy(),
-            method=self.method,
-            mode=self.mode,
-            num_blocks=self.num_blocks,
-            num_epochs=num_epochs,
-            history=_to_numpy(hist),
-            wall_seconds=wall,
-            gamma=gamma if consensus_method else None,
-            eta=eta if consensus_method else None,
-            num_rhs=b.shape[1] if batched else 1,
-        )
 
     def open_session(self, **kwargs):
         """Open a streaming prediction-correction ``Session`` over this
@@ -621,6 +708,7 @@ def prepare(
     partition: str = "uniform",
     dynamics: str = "global",
     device=None,
+    tracer=None,
 ) -> PreparedSolver:  # | repro_torch.core.matfree.MatrixFreePreparedSolver
     """Algorithm 1 steps 1–4, b-independent: partition A, factorize every
     block, build the projector. Returns the reusable solver on ``device``
@@ -648,9 +736,17 @@ def prepare(
     ``mesh=`` (a ``DeviceMesh``; every rank of it calls ``prepare``) returns
     the sharded matrix-free solver and requires the matrix-free path: a
     prepare that resolves the dense path raises ``ValueError``.
+
+    ``tracer`` (a ``repro_torch.obs.Tracer``) records the dense prepare's
+    phases under ``solver.prepare`` — ``solver.partition`` (host mixing and
+    the copy in), ``solver.qr``, ``solver.projector`` (a materialized P
+    only), ``solver.spectra`` (per-block dynamics only), ``solver.prepare_wait``
+    — and stays on the solver for its solves, whose counters go to
+    ``repro_torch.obs.metrics.REGISTRY``. The matrix-free path records
+    neither.
     """
     if isinstance(method, PrepareConfig):
-        return prepare(A, **method.kwargs())
+        return prepare(A, **method.kwargs(), tracer=tracer)
     if method not in METHODS:
         raise ValueError(f"method must be one of {METHODS}")
     path = resolve_path(A, num_blocks, mode, matfree_threshold_bytes)
@@ -698,36 +794,43 @@ def prepare(
     if isinstance(A, COOMatrix):
         A = A.to_dense()  # the dense path's per-block decompress, up front
     block_mode: BlockMode = mode if mode in ("tall", "wide") else "auto"
+    phase = obs_trace.recorder(tracer)  # decided once per prepare
     t0 = time.perf_counter()
-    blocks, resolved, mixer = partition_matrix(
-        A, num_blocks, block_mode, dtype, plan=plan, device=dev
-    )
+    with phase("solver.prepare", method=method, num_blocks=num_blocks):
+        with phase("solver.partition"):
+            blocks, resolved, mixer = partition_matrix(
+                A, num_blocks, block_mode, dtype, plan=plan, device=dev
+            )
 
-    factors: tuple = ()
-    projector: tuple = ()
-    if method == "dapc":
-        Ws, Rs = dapc.qr_blocks(blocks, resolved)
-        factors = (Ws, Rs)
-        if materialize_p:
-            # paper-faithful dense P_j, built ONCE here (not per solve)
-            projector = ("dense", projections.materialize(Ws))
-        elif use_kernels:
-            projector = ("kernels", Ws)
-        else:
-            projector = ("implicit", Ws)
-    elif method == "apc":
-        pinvs, Ps = apc.classical_factors(blocks, resolved)
-        factors = (pinvs, Ps)
-        projector = ("dense", Ps)
-    elif method == "dgd":
-        factors = (float(dgd.estimate_lipschitz(blocks)) ** -1,)
-    block_gamma_w = block_eta_w = spectra_d = None
-    if dynamics == "per_block":
-        spectra_d = spectra_mod.block_spectra_dense(
-            blocks.detach().cpu().numpy(), plan=plan
-        )
-        block_gamma_w, block_eta_w = spectra_mod.derive_dynamics(spectra_d)
-    synchronize(dev)
+        factors: tuple = ()
+        projector: tuple = ()
+        if method == "dapc":
+            with phase("solver.qr"):
+                Ws, Rs = dapc.qr_blocks(blocks, resolved)
+            factors = (Ws, Rs)
+            if materialize_p:
+                # paper-faithful dense P_j, built ONCE here (not per solve)
+                with phase("solver.projector"):
+                    projector = ("dense", projections.materialize(Ws))
+            elif use_kernels:
+                projector = ("kernels", Ws)
+            else:
+                projector = ("implicit", Ws)
+        elif method == "apc":
+            pinvs, Ps = apc.classical_factors(blocks, resolved)
+            factors = (pinvs, Ps)
+            projector = ("dense", Ps)
+        elif method == "dgd":
+            factors = (float(dgd.estimate_lipschitz(blocks)) ** -1,)
+        block_gamma_w = block_eta_w = spectra_d = None
+        if dynamics == "per_block":
+            with phase("solver.spectra"):
+                spectra_d = spectra_mod.block_spectra_dense(
+                    blocks.detach().cpu().numpy(), plan=plan
+                )
+                block_gamma_w, block_eta_w = spectra_mod.derive_dynamics(spectra_d)
+        with phase("solver.prepare_wait"):
+            synchronize(dev)
     setup_seconds = time.perf_counter() - t0
 
     return PreparedSolver(
@@ -748,4 +851,5 @@ def prepare(
         block_gamma_weights=block_gamma_w,
         block_eta_weights=block_eta_w,
         block_spectra=spectra_d,
+        tracer=tracer,
     )

@@ -121,13 +121,20 @@ def build_parser() -> argparse.ArgumentParser:
                      help="record request spans and write a Chrome "
                           "trace-event JSON (open directly in Perfetto / "
                           "chrome://tracing: one track per request, server "
-                          "batches on track 0)")
+                          "batches, their batch.assemble / batch.deliver "
+                          "and the solver.* phases on track 0)")
     obs.add_argument("--trace-jsonl", default=None, metavar="FILE",
                      help="also write the spans as JSON-lines (the "
                           "tools/trace_report.py input format)")
     obs.add_argument("--metrics-port", type=int, default=None, metavar="PORT",
                      help="serve the Prometheus text exposition of the "
-                          "server's metrics registry on this port "
+                          "server's metrics registry on this port, followed "
+                          "by the process registry's solver counters "
+                          "(solver_solves_total, solver_epochs_total, "
+                          "solver_column_epochs_total, "
+                          "solver_active_column_epochs_total, "
+                          "solver_host_syncs_total, "
+                          "solver_copy_bytes_total{direction}) "
                           "(0 = ephemeral; the bound port is printed)")
     obs.add_argument("--stats-every", type=float, default=0.0, metavar="SEC",
                      help="print a periodic server-stats line every SEC "
@@ -292,14 +299,14 @@ def _serve(args, mesh=None) -> None:
     prob, system = _system(args)
     rng = np.random.default_rng(args.seed + 1)
 
-    from repro_torch.obs.metrics import MetricsRegistry, start_exposition
+    from repro_torch.obs.metrics import REGISTRY, MetricsRegistry, start_exposition
     from repro_torch.obs.trace import Tracer
 
     tracer = Tracer() if (args.trace_out or args.trace_jsonl) else None
     registry = MetricsRegistry()
     exposition = None
     if args.metrics_port is not None:
-        exposition = start_exposition(registry, port=args.metrics_port)
+        exposition = start_exposition(registry, port=args.metrics_port, also=(REGISTRY,))
         host, port = exposition.server_address[:2]
         print(f"metrics: serving Prometheus exposition on "
               f"http://{host}:{port}/metrics")

@@ -12,6 +12,10 @@ Prometheus scraper ingests (``MetricsRegistry.render`` /
 Each ``SolveServer``/``PreparedPool`` owns its registry by default so
 concurrent servers in one process (tests, benchmarks) never share
 counters; pass a registry in to aggregate across components instead.
+
+``REGISTRY`` is the process's own registry, as Prometheus's default one:
+the solver's counters (``solver_*_total``, bumped once per
+``PreparedSolver.solve``) land there.
 """
 from __future__ import annotations
 
@@ -269,11 +273,14 @@ class MetricsRegistry:
         return "\n".join(lines) + "\n"
 
 
+REGISTRY = MetricsRegistry()
+
+
 class _ExpositionHandler(BaseHTTPRequestHandler):
-    registry: MetricsRegistry = None  # set per server class below
+    registries: tuple = ()  # set per server class below
 
     def do_GET(self):  # noqa: N802 (http.server API)
-        body = self.registry.render().encode()
+        body = "".join(r.render() for r in self.registries).encode()
         self.send_response(200)
         self.send_header(
             "Content-Type", "text/plain; version=0.0.4; charset=utf-8"
@@ -287,16 +294,19 @@ class _ExpositionHandler(BaseHTTPRequestHandler):
 
 
 def start_exposition(
-    registry: MetricsRegistry, port: int = 0, host: str = "127.0.0.1"
+    registry: MetricsRegistry, port: int = 0, host: str = "127.0.0.1",
+    also: tuple = (),
 ) -> ThreadingHTTPServer:
-    """Serve ``registry.render()`` over HTTP on a daemon thread.
+    """Serve ``registry.render()`` over HTTP on a daemon thread, followed
+    by the text of each registry in ``also`` (e.g. ``REGISTRY`` beside a
+    server's own; their family names must not clash).
 
     ``port=0`` binds an ephemeral port — read the actual one off the
     returned server's ``server_address``. Call ``shutdown()`` +
     ``server_close()`` when done (the serving CLI does this on exit).
     """
     handler = type(
-        "Handler", (_ExpositionHandler,), {"registry": registry}
+        "Handler", (_ExpositionHandler,), {"registries": (registry, *also)}
     )
     server = ThreadingHTTPServer((host, port), handler)
     thread = threading.Thread(

@@ -64,7 +64,16 @@ monotonic clock (``repro_torch.obs.clock``; pass a ``ManualClock`` for
 deterministic timing tests). Pass ``tracer=`` to record per-request spans
 (queue wait, coalesced solve, batch dispatch, pool prepare/restore) with
 zero overhead when left ``None`` — spans are back-filled at dispatch time,
-never touched on the submit hot path.
+never touched on the submit hot path. A batch span runs from the take to
+the end of its delivery and encloses its two children on the server track,
+``batch.assemble`` (take, stack, bucket padding) and ``batch.deliver``
+(per-column results, the futures); the pool's solvers carry the tracer, so
+the batch's ``solver.*`` phases are its children too; both also open
+profiler ranges while ``torch.profiler`` records. ``solve_ms`` stays
+dispatch → results ready.
+``RequestResult.worker_idle_ms`` (and the ``server_worker_idle_ms``
+histogram) is how long the one worker thread sat free while a batch's
+oldest request waited.
 """
 from __future__ import annotations
 
@@ -84,7 +93,7 @@ from repro_torch.core.prepared import ColumnResult, PreparedSolver
 from repro_torch.core.session import SESSION_METHODS, DriftPredictor
 from repro_torch.obs import clock as obs_clock
 from repro_torch.obs.metrics import MetricsRegistry
-from repro_torch.obs.trace import SERVER_TRACK, Tracer
+from repro_torch.obs.trace import SERVER_TRACK, Tracer, phase
 from repro_torch.serving import mesh as mesh_link
 from repro_torch.serving.checkpoint import CheckpointStore
 from repro_torch.serving.faults import (
@@ -274,7 +283,7 @@ class PreparedPool:
             self.faults.on_prepare(fingerprint)
         mesh_link.announce(kwargs, "prepare", fingerprint,
                            kwargs=mesh_link.public_kwargs(kwargs))
-        return prepare(A, **kwargs)
+        return prepare(A, **kwargs, tracer=self.tracer)
 
     def announce_solve(self, fingerprint: str, B, solve_kwargs: dict) -> None:
         """Tell the followers of a mesh-backed system to make the solve
@@ -304,6 +313,8 @@ class PreparedPool:
             t0 = self.clock.now()
             prep = self.checkpoint.load(fingerprint, kwargs)
             if prep is not None:
+                if isinstance(prep, PreparedSolver):
+                    prep.tracer = self.tracer
                 t1 = self.clock.now()
                 restore_ms = (t1 - t0) * 1e3
                 if self.tracer is not None:
@@ -454,6 +465,10 @@ class RequestResult(ColumnResult):
     queue_ms: float = 0.0  # enqueue → batch dispatch
     solve_ms: float = 0.0  # batch dispatch → results ready (batch-shared)
     attempts: int = 1  # solve dispatches this request rode (1 = first try)
+    # the worker thread free while the batch's oldest request waited
+    # (batch-shared; 0 for the first batch): start of this run − max(end
+    # of the previous run, enqueue of the oldest request), at least 0
+    worker_idle_ms: float = 0.0
 
     @property
     def column(self) -> int:
@@ -545,6 +560,14 @@ class _PendingQueue:
         dq.clear()
         dq.extend(kept)
         return taken
+
+
+def _undispatched(assemble) -> None:
+    """A batch that dispatched nothing records no batch span: its
+    ``batch.assemble`` phase, if recorded, becomes a root."""
+    span = getattr(assemble, "span", None)
+    if span is not None:
+        span.parent = 0
 
 
 class SolveServer:
@@ -679,6 +702,10 @@ class SolveServer:
             "server_batch_size", "coalesced requests per dispatched batch",
             buckets=(1, 2, 4, 8, 16, 32, 64),
         )
+        self._h_worker_idle_ms = m.histogram(
+            "server_worker_idle_ms",
+            "worker thread free while a batch's oldest request waited, per batch",
+        )
         self._g_ewma = m.gauge(
             "server_solve_ewma_seconds",
             "EWMA batch solve time (the policy's deadline estimate)",
@@ -722,6 +749,8 @@ class SolveServer:
         self._executor = ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="solve"
         )
+        # end of the last run; read and written on the worker thread only
+        self._worker_free_at: float | None = None
         self._closed = False
 
     # -- lifecycle ----------------------------------------------------------
@@ -798,7 +827,7 @@ class SolveServer:
             "server_requests_total", "server_batches_total",
             "server_flushes_total", "server_class_batches_total",
             "server_admission_rejects_total", "server_queue_ms",
-            "server_solve_ms", "server_batch_size",
+            "server_solve_ms", "server_batch_size", "server_worker_idle_ms",
             "server_failures_total", "server_retries_total",
             "server_recovered_requests_total",
             "server_failed_requests_total", "server_cancelled_total",
@@ -936,10 +965,22 @@ class SolveServer:
                 except asyncio.TimeoutError:
                     pass
                 continue
-            batch = queue.take(priority, self.policy.cap(priority))
-            self._c_flushes.labels(reason=reason).inc()
-            self._c_class.labels(priority=priority.name.lower()).inc()
-            await self._solve_batch(fingerprint, batch, reason, priority)
+            # the batch's span id, reserved: its children start before it
+            # is recorded; assembly runs on, without an await, to the
+            # hand-off in _attempt
+            batch_id = self.tracer.new_span_id() if self.tracer is not None else 0
+            t_begin = self.clock.now()
+            assemble = phase(self.tracer, "batch.assemble", parent=batch_id)
+            try:
+                assemble.__enter__()
+                batch = queue.take(priority, self.policy.cap(priority))
+                self._c_flushes.labels(reason=reason).inc()
+                self._c_class.labels(priority=priority.name.lower()).inc()
+                await self._solve_batch(fingerprint, batch, reason, priority,
+                                        batch_id=batch_id, assemble=assemble,
+                                        t_begin=t_begin)
+            finally:
+                assemble.close()
 
     # -- fault containment --------------------------------------------------
 
@@ -1069,9 +1110,16 @@ class SolveServer:
         batch: list[_Pending],
         reason: str = "full",
         priority: Priority = Priority.BULK,
+        batch_id: int = 0,
+        assemble=None,
+        t_begin: float | None = None,
     ):
         """Contained dispatch: solve the batch; on failure, isolate and
         recover instead of scattering the exception batch-wide.
+        ``batch_id`` is the batch span's reserved id (0: reserve one),
+        ``assemble`` the open ``batch.assemble`` phase, closed at hand-off,
+        and ``t_begin`` the batch span's start (None: now), so the span
+        encloses the assembly, the solve and the delivery.
 
         * Requests whose futures are already done (caller cancelled) are
           dropped up front — a dead request never occupies a column, and
@@ -1086,6 +1134,8 @@ class SolveServer:
 
         The dispatcher task survives every path, or pending submits hang.
         """
+        if t_begin is None:
+            t_begin = self.clock.now()
         alive = [p for p in batch if not p.future.done()]
         if len(alive) < len(batch):
             self._c_cancelled.inc(len(batch) - len(alive))
@@ -1098,6 +1148,7 @@ class SolveServer:
             else:
                 live.append(p)
         if not live:
+            _undispatched(assemble)
             return
         if not self._breaker_allows(fingerprint):
             for p in live:
@@ -1105,18 +1156,23 @@ class SolveServer:
                 self._fail_request(
                     fingerprint, p, "breaker_open", attempts=0
                 )
+            _undispatched(assemble)
             return
+        if self.tracer is not None and not batch_id:
+            batch_id = self.tracer.new_span_id()
         try:
-            result, columns, tol, t0, t1 = await self._attempt(
-                fingerprint, live
+            result, tol, t0, t1, idle_ms = await self._attempt(
+                fingerprint, live, batch_id=batch_id, assemble=assemble
             )
         except Exception as exc:
             self._c_failures.labels(reason=self._failure_reason(exc)).inc()
             self._breaker_record(fingerprint, ok=False)
+            if assemble is not None:  # a failure before the hand-off
+                assemble.close()
             if self.tracer is not None:
                 self.tracer.span_at(
-                    "batch", self.clock.now(), self.clock.now(),
-                    trace_id=SERVER_TRACK, cat="server",
+                    "batch", t_begin, self.clock.now(),
+                    trace_id=SERVER_TRACK, cat="server", span_id=batch_id,
                     fingerprint=fingerprint, batch_size=len(live),
                     reason=reason, priority=priority.name.lower(),
                     error=repr(exc),
@@ -1139,8 +1195,9 @@ class SolveServer:
         sick = self._sick_columns(result, len(live), tol)
         self._breaker_record(fingerprint, ok=True)
         self._deliver(
-            fingerprint, live, columns, tol, t0, t1, reason, priority,
-            skip=frozenset(sick),
+            fingerprint, live, result, tol, t0, t1, reason, priority,
+            skip=frozenset(sick), worker_idle_ms=idle_ms, batch_id=batch_id,
+            t_begin=t_begin,
         )
         for i, status in sick.items():
             self._c_failures.labels(reason=status).inc()
@@ -1153,12 +1210,17 @@ class SolveServer:
         fingerprint: str,
         batch: list[_Pending],
         prep_source: str = "pool",
+        batch_id: int = 0,
+        assemble=None,
     ):
-        """ONE coalesced solve on the worker thread. Returns ``(result,
-        columns, tol, t_dispatch, t_done)``; raises on any failure
+        """ONE coalesced solve on the worker thread. Returns ``(result, tol,
+        t_dispatch, t_done, worker_idle_ms)``; raises on any failure
         (including injected ones). ``prep_source`` picks the ladder rung:
         ``"pool"`` (normal get), ``"fallback"`` (degraded re-prepare), or
-        ``"refresh"`` (checkpoint-bypassing fresh prepare)."""
+        ``"refresh"`` (checkpoint-bypassing fresh prepare). The solve's
+        phases are children of span ``batch_id``; ``assemble``, the batch's
+        open ``batch.assemble`` phase, closes at the hand-off to the
+        worker."""
         loop = asyncio.get_running_loop()
         t_dispatch = self.clock.now()
         # the batch shares one batch key (``_PendingQueue.take`` groups on
@@ -1186,8 +1248,23 @@ class SolveServer:
                     mask[i] = True
             x0_arg = (warm, mask)
         seqs = tuple(p.seq for p in batch)
+        t_oldest = min(p.t_enqueue for p in batch)
+        idle = {}
 
         def run():
+            t_run = self.clock.now()
+            free_at = self._worker_free_at
+            idle["ms"] = 0.0 if free_at is None else max(
+                0.0, (t_run - max(free_at, t_oldest)) * 1e3)
+            try:
+                if self.tracer is None:
+                    return solve()
+                with self.tracer.within(batch_id):
+                    return solve()
+            finally:
+                self._worker_free_at = self.clock.now()
+
+        def solve():
             # pool access inside the solver thread: a cache miss (or a
             # ladder re-prepare) factorizes there, and the local reference
             # keeps the factors alive even if the pool evicts mid-solve
@@ -1229,6 +1306,8 @@ class SolveServer:
                 )
             return result
 
+        if assemble is not None:
+            assemble.close()
         result = await loop.run_in_executor(self._executor, run)
         t_done = self.clock.now()
         trace = result.history.get("block_residual_sq")
@@ -1241,14 +1320,13 @@ class SolveServer:
             self._g_imbalance.set(
                 float(final.max() / max(float(final.min()), 1e-30))
             )
-        columns = result.per_column(tol=tol)
-        return result, columns, tol, t_dispatch, t_done
+        return result, tol, t_dispatch, t_done, idle["ms"]
 
     def _deliver(
         self,
         fingerprint: str,
         batch: list[_Pending],
-        columns,
+        result,
         tol,
         t_dispatch: float,
         t_done: float,
@@ -1256,69 +1334,83 @@ class SolveServer:
         priority: Priority,
         attempts: int = 1,
         skip: frozenset = frozenset(),
+        worker_idle_ms: float = 0.0,
+        batch_id: int = 0,
+        t_begin: float | None = None,
     ) -> None:
-        """Scatter per-column results to the batch's futures (skipping the
-        watchdog-flagged indices in ``skip`` — those recover separately)
-        and record the batch's metrics/spans."""
-        solve_ms = (t_done - t_dispatch) * 1e3
-        # EWMA batch solve time — what the policy's deadline pull-forward
-        # assumes the NEXT batch will cost
-        prev = self._solve_s.get(fingerprint)
-        dt = solve_ms / 1e3
-        self._solve_s[fingerprint] = (
-            dt if prev is None else 0.7 * prev + 0.3 * dt
-        )
-        self._g_ewma.set(self._solve_s[fingerprint])
-        delivered = len(batch) - len(skip)
-        self._c_requests.inc(delivered)
-        self._c_batches.inc()
-        self._h_solve_ms.observe(solve_ms)
-        self._h_batch_size.observe(len(batch))
+        """Split ``result`` per column and scatter it to the batch's futures
+        (skipping the watchdog-flagged indices in ``skip`` — those recover
+        separately), and record the batch's metrics/spans: the batch span
+        under the reserved ``batch_id``, from ``t_begin`` (None:
+        ``t_dispatch``) to the end of this delivery, which is its
+        ``batch.deliver`` child."""
         tracer = self.tracer
+        batch_span = None
         if tracer is not None:
             # one span per batch on the server track, plus the back-filled
             # per-request queue + solve spans — each request's track shows
-            # its whole enqueue → dispatch → result timeline
-            tracer.span_at(
-                "batch", t_dispatch, t_done, trace_id=SERVER_TRACK,
-                cat="server", fingerprint=fingerprint,
-                batch_size=len(batch), reason=reason,
+            # its whole enqueue → dispatch → result timeline. Sealed first,
+            # in the reference's record order; it ends with the delivery.
+            batch_span = tracer.span_at(
+                "batch", t_dispatch if t_begin is None else t_begin, t_done,
+                trace_id=SERVER_TRACK, cat="server", span_id=batch_id,
+                fingerprint=fingerprint, batch_size=len(batch), reason=reason,
                 priority=priority.name.lower(),
             )
-        for i, (pending, col) in enumerate(zip(batch, columns)):
-            if i in skip:
-                continue
-            queue_ms = (t_dispatch - pending.t_enqueue) * 1e3
-            self._h_queue_ms.observe(queue_ms)
-            if tracer is not None:
-                tracer.span_at(
-                    "queue", pending.t_enqueue, t_dispatch,
-                    trace_id=pending.trace_id, cat="request",
-                    priority=pending.options.priority.name.lower(),
-                )
-                tracer.span_at(
-                    "solve", t_dispatch, t_done,
-                    trace_id=pending.trace_id, cat="request",
-                    fingerprint=fingerprint, column=i,
-                    batch_size=len(batch),
-                    iterations=int(col.iterations),
-                    converged=bool(col.converged),
-                )
-            if pending.future.done():  # caller went away (cancelled)
-                self._c_cancelled.inc()
-                continue
-            pending.future.set_result(
-                RequestResult(
-                    # widen the ColumnResult into the serving shape (no
-                    # asdict: that would deep-copy the solution vector)
-                    **{f.name: getattr(col, f.name)
-                       for f in dataclasses.fields(col)},
-                    batch_size=len(batch),
-                    queue_ms=queue_ms,
-                    solve_ms=solve_ms,
-                    attempts=attempts,
-                )
+        with phase(tracer, "batch.deliver", parent=batch_id):
+            columns = result.per_column(tol=tol)
+            solve_ms = (t_done - t_dispatch) * 1e3
+            # EWMA batch solve time — what the policy's deadline pull-forward
+            # assumes the NEXT batch will cost
+            prev = self._solve_s.get(fingerprint)
+            dt = solve_ms / 1e3
+            self._solve_s[fingerprint] = (
+                dt if prev is None else 0.7 * prev + 0.3 * dt
             )
+            self._g_ewma.set(self._solve_s[fingerprint])
+            delivered = len(batch) - len(skip)
+            self._c_requests.inc(delivered)
+            self._c_batches.inc()
+            self._h_solve_ms.observe(solve_ms)
+            self._h_batch_size.observe(len(batch))
+            self._h_worker_idle_ms.observe(worker_idle_ms)
+            for i, (pending, col) in enumerate(zip(batch, columns)):
+                if i in skip:
+                    continue
+                queue_ms = (t_dispatch - pending.t_enqueue) * 1e3
+                self._h_queue_ms.observe(queue_ms)
+                if tracer is not None:
+                    tracer.span_at(
+                        "queue", pending.t_enqueue, t_dispatch,
+                        trace_id=pending.trace_id, cat="request",
+                        priority=pending.options.priority.name.lower(),
+                    )
+                    tracer.span_at(
+                        "solve", t_dispatch, t_done,
+                        trace_id=pending.trace_id, cat="request",
+                        fingerprint=fingerprint, column=i,
+                        batch_size=len(batch),
+                        iterations=int(col.iterations),
+                        converged=bool(col.converged),
+                    )
+                if pending.future.done():  # caller went away (cancelled)
+                    self._c_cancelled.inc()
+                    continue
+                pending.future.set_result(
+                    RequestResult(
+                        # widen the ColumnResult into the serving shape (no
+                        # asdict: that would deep-copy the solution vector)
+                        **{f.name: getattr(col, f.name)
+                           for f in dataclasses.fields(col)},
+                        batch_size=len(batch),
+                        queue_ms=queue_ms,
+                        solve_ms=solve_ms,
+                        attempts=attempts,
+                        worker_idle_ms=worker_idle_ms,
+                    )
+                )
+        if batch_span is not None:
+            batch_span.t1 = self.clock.now()
 
     async def _recover(
         self,
@@ -1361,17 +1453,19 @@ class SolveServer:
             self._c_retries.labels(stage=stage).inc()
             t_stage = self.clock.now()
             prep_source = "pool" if stage == "retry" else stage
+            batch_id = self.tracer.new_span_id() if self.tracer is not None else 0
             try:
-                result, columns, tol, t0, t1 = await self._attempt(
-                    fingerprint, [pending], prep_source=prep_source
+                result, tol, t0, t1, idle_ms = await self._attempt(
+                    fingerprint, [pending], prep_source=prep_source,
+                    batch_id=batch_id,
                 )
             except Exception as exc:
                 last_reason, last_exc = self._failure_reason(exc), exc
                 self._c_failures.labels(reason=last_reason).inc()
-                if self.tracer is not None:
+                if self.tracer is not None:  # the attempt's span: its solve's parent
                     self.tracer.span_at(
                         f"recover.{stage}", t_stage, self.clock.now(),
-                        trace_id=pending.trace_id, cat="fault",
+                        trace_id=pending.trace_id, cat="fault", span_id=batch_id,
                         fingerprint=fingerprint, error=repr(exc),
                     )
                 continue
@@ -1382,7 +1476,7 @@ class SolveServer:
                 if self.tracer is not None:
                     self.tracer.span_at(
                         f"recover.{stage}", t_stage, self.clock.now(),
-                        trace_id=pending.trace_id, cat="fault",
+                        trace_id=pending.trace_id, cat="fault", span_id=batch_id,
                         fingerprint=fingerprint, status=last_reason,
                     )
                 continue
@@ -1394,8 +1488,9 @@ class SolveServer:
                     fingerprint=fingerprint, recovered=True,
                 )
             self._deliver(
-                fingerprint, [pending], columns, tol, t0, t1,
+                fingerprint, [pending], result, tol, t0, t1,
                 f"recover_{stage}", priority, attempts=attempts,
+                worker_idle_ms=idle_ms, batch_id=batch_id, t_begin=t_stage,
             )
             return
         self._fail_request(

@@ -213,6 +213,22 @@ def _traced(module, clock_module):
     return tracer, tid, span
 
 
+def _unlinked(doc):
+    """An export with the port's span links (``id``, ``parent`` in each
+    span's args) taken out: what the reference writes."""
+    if isinstance(doc, dict):
+        return {k: _unlinked(v) for k, v in doc.items()
+                if k not in ("id", "parent") or not isinstance(v, int)}
+    if isinstance(doc, list):
+        return [_unlinked(v) for v in doc]
+    return doc
+
+
+def _read_export(path, fmt):
+    text = path.read_text()
+    return json.loads(text) if fmt == "chrome" else [json.loads(x) for x in text.splitlines()]
+
+
 def test_spans_round_trip_both_formats_across_packages(tmp_path):
     tracer, tid, span = _traced(ttrace, tclock)
     ref, _, _ = _traced(jtrace, jclock)
@@ -221,14 +237,16 @@ def test_spans_round_trip_both_formats_across_packages(tmp_path):
         ours, theirs = tmp_path / f"t.{fmt}", tmp_path / f"r.{fmt}"
         assert getattr(tracer, f"export_{fmt}")(ours) == 3
         getattr(ref, f"export_{fmt}")(theirs)
-        assert ours.read_text() == theirs.read_text()
+        assert _unlinked(_read_export(ours, fmt)) == _read_export(theirs, fmt)
         for load in (jtrace.load_trace, ttrace.load_trace):
             recs = load(ours)
             by_name = {r["name"]: r for r in recs}
             assert by_name["queue"]["trace_id"] == tid
             assert by_name["queue"]["dur_us"] == pytest.approx(10_000.0)
-            assert by_name["queue"]["args"] == {"priority": "bulk", "batch": 3}
+            assert _unlinked(by_name["queue"]["args"]) == {"priority": "bulk", "batch": 3}
             assert by_name["batch"]["trace_id"] == ttrace.SERVER_TRACK
+        links = {r["name"]: (r["id"], r["parent"]) for r in ttrace.load_trace(ours)}
+        assert links == {"queue": (1, 0), "batch": (2, 0), "work": (3, 0)}
     events = json.loads((tmp_path / "t.chrome").read_text())["traceEvents"]
     names = {e["args"]["name"] for e in events if e.get("ph") == "M"}
     assert "server" in names and f"request {tid}" in names
@@ -347,19 +365,33 @@ def _manual_replay(module, clock_module, trace_module, kw, problem, B):
     return results, tracer._records(), text
 
 
+# what the port records that the reference does not: the batch's and the
+# solver's phases, and the worker-idle histogram
+PORT_ONLY_SPANS = ("batch.", "solver.")
+PORT_ONLY_FAMILY = "server_worker_idle_ms"
+
+
 def test_manual_clock_replay_equals_the_reference(problem, rhs_batch):
     """No wall clock leaks into the accounting: with a ManualClock that
     never moves, both packages report zero latencies, the same spans
-    (names, tracks, times, attributes) and the same metrics text."""
+    (names, tracks, times, attributes) and the same metrics text, once
+    the port's own spans, links and histogram are set aside."""
     B, _ = rhs_batch
     ours = _manual_replay(tqueue, tclock, ttrace, PORT_KW, problem, B)
     ref = _manual_replay(jqueue, jclock, jtrace, JAX_KW, problem, B)
     for res in ours[0]:
         assert res.queue_ms == 0.0 and res.solve_ms == 0.0
+        assert res.worker_idle_ms == 0.0
     assert [(r.queue_ms, r.solve_ms, r.batch_size, r.column, r.iterations) for r in ours[0]] == [
         (r.queue_ms, r.solve_ms, r.batch_size, r.column, r.iterations) for r in ref[0]]
-    assert ours[1] == ref[1]
-    assert ours[2] == ref[2]
+    shared = [r for r in ours[1] if not r["name"].startswith(PORT_ONLY_SPANS)]
+    assert _unlinked(shared) == ref[1]
+    assert {r["name"] for r in ours[1]} - {r["name"] for r in shared} == {
+        "batch.assemble", "batch.deliver", "solver.solve", "solver.rhs", "solver.init",
+        "solver.epochs", "solver.wait", "solver.fetch", "solver.prepare",
+        "solver.partition", "solver.qr", "solver.prepare_wait"}
+    text = "\n".join(line for line in ours[2].split("\n") if PORT_ONLY_FAMILY not in line)
+    assert text == ref[2]
 
 
 # -- serving traces -----------------------------------------------------------
