@@ -7,15 +7,25 @@ per-block initial solutions and projectors are produced (Algorithm 1 steps
 Every function here is shape-polymorphic over a trailing RHS axis: state is
 ``(J, n)`` for one right-hand side or ``(J, n, k)`` for a k-system batch.
 The reference's ``lax.scan`` becomes a loop that queues device work only:
-no per-epoch host sync (the ``tol`` freeze stays on the device as a
-``torch.where`` mask), histories are written into preallocated ``(E, …)``
-tensors, and the ``avg_every`` schedule is a Python bool per epoch.
+no host sync (the ``tol`` freeze stays on the device as a ``torch.where``
+mask; the host learns that every column has frozen from a poll that never
+blocks it), histories are written into preallocated ``(E, …)`` tensors, and
+the ``avg_every`` schedule is a Python bool per epoch.
 """
 from __future__ import annotations
 
+import collections
+import threading
 from typing import Callable
 
 import torch
+
+# Under ``tol``, the epochs between two polls of the freeze mask. A poll is
+# one reduction and a one-byte copy to the host; at most this many epochs
+# run after the poll that first reads every column frozen is issued.
+POLL_EVERY = 4
+_POLL_SLOTS = 64  # polls in flight at most; the host skips a poll beyond
+_poll_buffers = threading.local()
 
 
 def _match_rhs(bvecs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -41,6 +51,53 @@ def _block_col(v, ndim: int):
     return v
 
 
+def _poll_buffer(stream):
+    """A pinned ``(_POLL_SLOTS,)`` bool host buffer, its numpy view and one
+    CUDA event per slot, made once per host thread and CUDA stream. A
+    stream runs its copies in the order they were queued, so a poll still
+    in flight when its solve returns lands before any poll of a later solve
+    that reuses its slot, and the later poll's event completes after it."""
+    bufs = _poll_buffers.__dict__.setdefault("by_stream", {})
+    if stream not in bufs:  # a stream hashes by its handle and device
+        flags = torch.zeros(_POLL_SLOTS, dtype=torch.bool, pin_memory=True)
+        bufs[stream] = flags, flags.numpy(), [torch.cuda.Event() for _ in range(_POLL_SLOTS)]
+    return bufs[stream]
+
+
+class _FreezePoll:
+    """Whether the ``tol`` mask has frozen every column, as far as the host
+    can see without waiting. Every ``POLL_EVERY`` epochs ``frozen`` queues
+    ``active.any()``, copies it without blocking into a slot of a pinned
+    buffer and records an event; at every epoch it reads the polls whose
+    events have completed, oldest first. On a CPU device the flag is read
+    in place, at once. ``copied`` counts the flags copied, one byte each."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.copied = 0
+        self.pending: collections.deque = collections.deque()  # slots in flight, oldest first
+        if self.cuda:
+            self.stream = torch.cuda.current_stream(device)
+            self.flags, self.view, self.events = _poll_buffer(self.stream)
+
+    def frozen(self, active: torch.Tensor, t: int) -> bool:
+        """After epoch ``t``, whose residual gave the next epoch's mask
+        ``active``: True once a poll has read no column active."""
+        if (t + 1) % POLL_EVERY == 0:
+            if not self.cuda:
+                return not bool(active.any())
+            if len(self.pending) < _POLL_SLOTS:
+                slot = self.copied % _POLL_SLOTS
+                self.copied += 1
+                self.flags[slot].copy_(active.any(), non_blocking=True)
+                self.events[slot].record(self.stream)
+                self.pending.append(slot)
+        while self.pending and self.events[self.pending[0]].query():
+            if not self.view[self.pending.popleft()]:
+                return True
+        return False
+
+
 def run_consensus(
     x0s: torch.Tensor,  # (J, n) or (J, n, k) per-block initial solutions
     apply_fn: Callable[[torch.Tensor], torch.Tensor],  # x0s-shaped: P_j v_j
@@ -55,6 +112,8 @@ def run_consensus(
     xbar0: torch.Tensor | None = None,  # warm start (elastic restart)
     tol: float | None = None,  # masked per-column early exit
     block_history: bool = False,  # per-block residual diagnostics
+    *,
+    stats: dict | None = None,  # out: epochs run, bytes the polls copied
 ):
     """Paper eqs. (5)–(7). Returns (x̄_final, history dict).
 
@@ -71,6 +130,16 @@ def run_consensus(
     ``residual_sq <= tol²`` freezes — its xs/x̄ columns stop updating under a
     ``torch.where`` mask — while the batch keeps its shape. The mask reads
     the residual carried from the previous epoch. Requires (blocks, bvecs).
+    Once every column has frozen, x̄ and the metrics no longer change, so
+    the loop ends as soon as a poll of the mask (every ``POLL_EVERY``
+    epochs, read without blocking the host) finds no column active, and the
+    remaining history rows repeat the last one computed: the result is the
+    one the full cap gives, bit for bit. A column that never freezes runs
+    the cap.
+
+    ``stats``, a dict, receives ``epochs`` (the epochs run) and
+    ``poll_bytes`` (the bytes the polls copied to the host; none on a CPU
+    device, where the flag is read in place).
 
     ``compress="bf16_delta"`` communicates the delta mean(x)−x̄ in bf16
     (eq. 7 rewritten as x̄ += η·Δ).
@@ -120,7 +189,13 @@ def run_consensus(
         for key, v in init_metrics.items()
     }
     xs, xbar = x0s, xbar0
-    resid = init_metrics.get("residual_sq")
+    ran = 0
+    if tol is not None:
+        # the mask of epoch t reads the residual of the x̄ it STARTS from:
+        # the initial one, then each epoch's, so frozen columns stop moving
+        tol_sq = tol * tol
+        active = init_metrics["residual_sq"] > tol_sq  # (k,) batched, scalar otherwise
+        poll = _FreezePoll(active.device)
     for t in range(num_epochs):
         xs_new = xs + gam * apply_fn(xbar[None] - xs)  # eq. (6), parallel j
         if (t + 1) % avg_every != 0:
@@ -137,17 +212,22 @@ def run_consensus(
         else:
             xbar_new = eta * torch.mean(xs_new, dim=0) + (1.0 - eta) * xbar  # eq. (7)
         if tol is not None:
-            # residual of the x̄ this epoch STARTED from, carried from the
-            # previous metrics pass — frozen columns stop moving entirely
-            active = resid > tol * tol  # (k,) batched, scalar otherwise
             xs_new = torch.where(active, xs_new, xs)
             xbar_new = torch.where(active, xbar_new, xbar)
         out = metrics(xbar_new)
         for key, v in out.items():
             hist[key][t] = v
-        if tol is not None:
-            resid = out["residual_sq"]
         xs, xbar = xs_new, xbar_new
+        ran = t + 1
+        if tol is not None and ran < num_epochs:
+            active = out["residual_sq"] > tol_sq
+            if poll.frozen(active, t):
+                break
+    if ran < num_epochs:  # every later epoch would recompute the same row
+        for h in hist.values():
+            h[ran:] = h[ran - 1]
+    if stats is not None:
+        stats.update(epochs=ran, poll_bytes=poll.copied if tol is not None else 0)
     hist["initial"] = init_metrics
     return xbar, hist
 

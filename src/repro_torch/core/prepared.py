@@ -283,13 +283,17 @@ def _leaves(tree) -> list:
 # the solver's counters: bumped once per solve, on the host, after the fetch
 SOLVER_COUNTERS = {
     "solver_solves_total": "PreparedSolver.solve calls completed",
-    "solver_epochs_total": "epochs run, the cap included (frozen columns run every epoch)",
-    "solver_column_epochs_total": "epochs x columns, bucket padding included",
+    "solver_epochs_total":
+        "epochs run: a tol solve ends at the poll that finds every column frozen, else at the cap",
+    "solver_column_epochs_total": "epochs run x columns, bucket padding included",
     "solver_active_column_epochs_total":
         "column-epochs not frozen by tol: the run_consensus mask, from the fetched history",
+    "solver_early_stops_total": "solves that ended before the cap: every column frozen by tol",
     "solver_host_syncs_total":
-        "calls that block the host on the device: each blocking copy in or out, the synchronize",
-    "solver_copy_bytes_total": "bytes copied between host and device, by direction",
+        "calls that block the host on the device: each blocking copy in or out, the "
+        "synchronize (the tol polls do not block)",
+    "solver_copy_bytes_total":
+        "bytes copied between host and device, by direction (the tol polls' flags included)",
 }
 
 
@@ -306,22 +310,27 @@ def active_column_epochs(history: dict, num_epochs: int, k: int, tol) -> int:
     return int(np.count_nonzero(start > start.dtype.type(float(tol) * float(tol))))
 
 
-def count_solve(*, epochs: int, k: int, active: int, moved_in, moved_out) -> None:
+def count_solve(*, epochs: int, cap: int, k: int, active: int, moved_in, moved_out,
+                poll_bytes: int = 0) -> None:
     """Bump the solver's counters in ``repro_torch.obs.metrics.REGISTRY``
-    for one solve that copied
-    the tensors ``moved_in`` to the device and ``moved_out`` back, each in
-    one blocking call, and synchronized once. Counted from the shapes: on a
-    CPU device the same calls are counted, although they cross nothing."""
+    for one solve that ran ``epochs`` of its ``cap``, copied the tensors
+    ``moved_in`` to the device and ``moved_out`` back, each in one blocking
+    call, synchronized once, and copied ``poll_bytes`` of ``tol`` polls
+    back without blocking. Counted from the shapes: on a CPU device the
+    same blocking calls are counted, although they cross nothing (its
+    polls read the flag in place and copy nothing)."""
     registry = obs_metrics.REGISTRY
     c = {name: registry.counter(name, help) for name, help in SOLVER_COUNTERS.items()}
     c["solver_solves_total"].inc()
     c["solver_epochs_total"].inc(epochs)
     c["solver_column_epochs_total"].inc(epochs * k)
     c["solver_active_column_epochs_total"].inc(active)
+    c["solver_early_stops_total"].inc(int(epochs < cap))
     c["solver_host_syncs_total"].inc(len(moved_in) + 1 + len(moved_out))
     copies = c["solver_copy_bytes_total"]
     copies.labels(direction="h2d").inc(sum(t.numel() * t.element_size() for t in moved_in))
-    copies.labels(direction="d2h").inc(sum(t.numel() * t.element_size() for t in moved_out))
+    copies.labels(direction="d2h").inc(
+        sum(t.numel() * t.element_size() for t in moved_out) + poll_bytes)
 
 
 @dataclasses.dataclass
@@ -417,7 +426,7 @@ class PreparedSolver:
         )
 
     def _solve_phase(self, bvecs, gamma, eta, num_epochs, ref, xbar0, x0, kwargs,
-                     phase=obs_trace.untraced):
+                     phase=obs_trace.untraced, stats=None):
         """Substitution + consensus for the apc/dapc methods.
 
         ``x0`` warm start: the per-block initial solutions become the
@@ -425,7 +434,8 @@ class PreparedSolver:
         x_j(0) = x0 + A_j⁺(b_j − A_j x0) — the substitution is linear in its
         RHS, so this reuses the cached factors on the shifted residual. The
         masked form (x0, mask) zeroes cold columns' shift. ``phase`` records
-        the substitution (``solver.init``) and the loop (``solver.epochs``).
+        the substitution (``solver.init``) and the loop (``solver.epochs``);
+        ``stats`` receives the loop's epochs run and poll bytes.
         """
         with phase("solver.init"):
             if x0 is not None:
@@ -452,6 +462,7 @@ class PreparedSolver:
             return consensus.run_consensus(
                 x0s, apply_fn, gamma, eta, num_epochs,
                 x_ref=ref, blocks=self.blocks, bvecs=bvecs, xbar0=xbar0, **kwargs,
+                stats=stats,
             )
 
     def _operand(self, arr):
@@ -487,7 +498,8 @@ class PreparedSolver:
         With a tracer attached, or while ``torch.profiler`` records, the
         solve records ``solver.solve`` and its phases ``solver.rhs`` (host
         mixing, the copies in), ``solver.init`` (the substitution),
-        ``solver.epochs`` (the loop, queued without a host sync),
+        ``solver.epochs`` (the loop, queued without a host sync; under
+        ``tol`` it ends once a non-blocking poll finds every column frozen),
         ``solver.wait`` and ``solver.fetch`` (the copies out). After the
         fetch it bumps the ``SOLVER_COUNTERS`` once, on the host.
         """
@@ -529,9 +541,11 @@ class PreparedSolver:
                         moved_in.append(warm)
                     gamma_op, eta_op = self._dynamics_operands(gamma, eta, per_block)
                     moved_in += [gamma_op, eta_op]
+            stats = {"epochs": num_epochs, "poll_bytes": 0}
             if consensus_method:
                 x, hist = self._solve_phase(
-                    bvecs, gamma_op, eta_op, num_epochs, ref, xbar0, warm, kwargs, phase
+                    bvecs, gamma_op, eta_op, num_epochs, ref, xbar0, warm, kwargs, phase,
+                    stats,
                 )
             else:
                 with phase("solver.epochs", epochs=num_epochs, k=k, tol=tol):
@@ -549,10 +563,11 @@ class PreparedSolver:
                 x_host = x.detach().cpu().numpy()
                 history = _to_numpy(hist)
             count_solve(
-                epochs=num_epochs, k=k,
+                epochs=stats["epochs"], cap=num_epochs, k=k,
                 active=active_column_epochs(
                     history, num_epochs, k, tol if consensus_method else None),
                 moved_in=moved_in, moved_out=[x] + _leaves(hist),
+                poll_bytes=stats["poll_bytes"],
             )
             return SolveResult(
                 x=x_host,

@@ -133,6 +133,7 @@ def build_parser() -> argparse.ArgumentParser:
                           "(solver_solves_total, solver_epochs_total, "
                           "solver_column_epochs_total, "
                           "solver_active_column_epochs_total, "
+                          "solver_early_stops_total, "
                           "solver_host_syncs_total, "
                           "solver_copy_bytes_total{direction}) "
                           "(0 = ephemeral; the bound port is printed)")

@@ -676,9 +676,12 @@ def test_served_poisson_replay_through_the_kernels(cuda, path):
     solve gate of a direct solve of the same columns at the served width
     and within one epoch of it; the served batches launch the path's hand
     kernels (one trisolve and one consensus update per epoch dense, one
-    fused packed pass per epoch and no staged pass matrix-free)."""
+    fused packed pass per epoch and no staged pass matrix-free). A dense
+    batch stops once every column has frozen: its updates are the epochs
+    the solver's counter says it ran, fewer than the cap."""
     import asyncio
 
+    from repro_torch.obs import metrics as tmetrics
     from repro_torch.serving import SolveServer, replay_trace
     from repro_torch.sparse import make_problem
 
@@ -704,9 +707,11 @@ def test_served_poisson_replay_through_the_kernels(cuda, path):
             cold = prep.solve(rhs[:, :width], num_epochs=cap)
             server.tol = tol = 3.0 * float(np.sqrt(np.max(cold.history["residual_sq"][-1])))
             before = {"trisolve": trisolve_ops.launches, "project": project_ops.launches,
+                      "epochs": tmetrics.REGISTRY.value("solver_epochs_total"),
                       **spmm_ops.launches}
             results = await replay_trace(server, fp, rhs, gaps)
             after = {"trisolve": trisolve_ops.launches, "project": project_ops.launches,
+                     "epochs": tmetrics.REGISTRY.value("solver_epochs_total"),
                      **spmm_ops.launches}
             return prep, tol, results, {k: after[k] - before[k] for k in after}, server.stats()
 
@@ -723,7 +728,8 @@ def test_served_poisson_replay_through_the_kernels(cuda, path):
             np.testing.assert_allclose(got.x, want, atol=atol)
             assert abs(got.iterations - int(its[j])) <= 1 and got.converged
     if path == "dense":
-        assert launches["trisolve"] == nb and launches["project"] == cap * nb, launches
+        assert launches["trisolve"] == nb, launches
+        assert launches["project"] == launches["epochs"] < cap * nb, launches
     else:
         assert launches["spmm_fused_packed"] == cap * nb and launches["spmm"] >= nb, launches
         assert launches["spmm_fused"] == 0, launches

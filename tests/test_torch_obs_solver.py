@@ -15,7 +15,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.core import prepare
+from repro_torch.core import consensus, prepare
 from repro_torch.obs import clock as tclock
 from repro_torch.obs import metrics as tmetrics
 from repro_torch.obs import trace as ttrace
@@ -105,6 +105,14 @@ def _freeze_epochs(res, tol):
     return np.where(reached.any(axis=0), reached.argmax(axis=0) + 1, h.shape[0])
 
 
+def _epochs_run(freeze, cap):
+    """The epochs a tol solve runs on the CPU, where each poll is read at
+    once: to the first poll (every ``POLL_EVERY`` epochs) after the last
+    column froze, else the cap."""
+    c = consensus.POLL_EVERY
+    return min(cap, -(-int(freeze.max()) // c) * c)
+
+
 @pytest.mark.parametrize("tol", [None, TOL])
 def test_counters_equal_their_exact_values(system, registry, tol):
     A, B = system
@@ -114,17 +122,28 @@ def test_counters_equal_their_exact_values(system, registry, tol):
     p = prep.blocks.shape[1]
     v = reg.value
     assert v("solver_solves_total") == 2
-    assert v("solver_epochs_total") == 2 * EPOCHS
-    assert v("solver_column_epochs_total") == 2 * EPOCHS * K
     if tol is None:
+        assert v("solver_epochs_total") == 2 * EPOCHS
+        assert v("solver_column_epochs_total") == 2 * EPOCHS * K
         assert v("solver_active_column_epochs_total") == 2 * EPOCHS * K
+        assert v("solver_early_stops_total") == 0
     else:
         r0 = np.asarray(results[0].history["initial"]["residual_sq"])
         assert (r0 > tol * tol).all()  # no column starts frozen
         freeze = [_freeze_epochs(r, tol) for r in results]
         assert all((f < EPOCHS).all() for f in freeze)  # every column froze
+        # the epochs run, not the cap: each solve stops at its first poll
+        # after the last freeze
+        runs = [_epochs_run(f, EPOCHS) for f in freeze]
+        assert all(ran < EPOCHS for ran in runs)
+        assert v("solver_epochs_total") == sum(runs)
+        assert v("solver_column_epochs_total") == sum(runs) * K
         assert v("solver_active_column_epochs_total") == sum(int(f.sum()) for f in freeze)
+        assert v("solver_early_stops_total") == 2
     # in: the blocked rhs, γ and η; out: x, the history and its initial row
+    # (the full cap's rows); the polls block nothing, and on the CPU they
+    # read the flag in place, copying nothing (the card test counts their
+    # bytes against a profile)
     assert v("solver_host_syncs_total") == 2 * (3 + 1 + 3)
     assert v("solver_copy_bytes_total", direction="h2d") == 2 * (J * p * K * 4 + 4 + 4)
     assert v("solver_copy_bytes_total", direction="d2h") == 2 * (N * K + EPOCHS * K + K) * 4
