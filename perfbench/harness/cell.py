@@ -7,6 +7,13 @@ traffic mix (``perfbench/traffic/<mix>.json``) and has its limits in
 ``perfbench/e2e/<name>.py`` for an end-to-end metric,
 ``perfbench/metrics/<name>.py`` for a per-layer one, each with ``read(ctx)``
 returning a number, or None when it finds nothing to read.
+
+A configuration's matrix reaches the program in its ``problem``'s form (see
+``harness/problem.py``): the dense array, or the port's ``COOMatrix`` of the
+``"coo"`` form's coordinates; its ``prepare`` keys pick the solver (the
+dense ``PreparedSolver``, or the ``MatrixFreePreparedSolver`` with
+``"mode": "matfree"``). The reference is handed the plain matrix: the dense
+array, or the coordinates (``problem.Coords``), never a type of the program.
 """
 from __future__ import annotations
 
@@ -89,6 +96,27 @@ class Context:
     p: int
     n: int
     k: int  # width of each solve call
+    path: str  # the solver read: "dense" or "matfree"
+
+
+def program_matrix(plain):
+    """The matrix as the program takes it: the dense array itself, or a
+    ``COOMatrix`` of copies of the coordinates."""
+    if isinstance(plain, problem.Coords):
+        from repro_torch.sparse.matrix import COOMatrix
+
+        return COOMatrix(plain.rows.copy(), plain.cols.copy(), plain.vals.copy(),
+                         tuple(plain.shape))
+    return plain
+
+
+def solve_shape(prep) -> tuple[int, int, int]:
+    """(J, p, n) of a prepared solver: its blocks' shape on the dense path,
+    (num_blocks, block_rows, num_cols) on the matrix-free one."""
+    blocks = getattr(prep, "blocks", None)
+    if blocks is not None:
+        return tuple(int(s) for s in blocks.shape)
+    return int(prep.num_blocks), int(prep.block_rows), int(prep.num_cols)
 
 
 def _prepare_kwargs(config: dict, device) -> dict:
@@ -110,8 +138,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     epochs = int(mix["epochs"])
     system = problem.make_system(config["problem"], seed, device)
     load = traffic.make_load(mix, system, seed, seconds)
-    A = system.A.cpu().numpy()
+    plain = system.host()
     del system
+    A = program_matrix(plain)
     compare.free_device()
 
     tracer = None
@@ -144,20 +173,21 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
         def run(mark):
             return drive.open_loop(server, fp, device, load.rhs, load.due_s, seconds,
                                    load.warm, mark, tracer)
-    J, p, n = (int(s) for s in prep.blocks.shape)
+    J, p, n = solve_shape(prep)
+    path = prep.path
     setup = {}
 
     def mark():  # the warm-up before the window is set-up; the window starts here
         setup["seconds"] = time.perf_counter() - t_start
 
     window = run(mark)
-    del prep
+    del prep, A
     server = None
     compare.free_device()
 
     # the check, once the window has closed and the program's state is freed
     ref_mod = load_reference(config)
-    ref = ref_mod.build(A, config, "float64", device)
+    ref = ref_mod.build(plain, config, "float64", device)
     answers = window.answers
     if mix["kind"] == "open_poisson":
         answers = sample_answers(answers, seed, int(mix.get("sample", 256)))
@@ -173,7 +203,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
               f"p95 {float(np.percentile(late, 95))} max {float(late.max())}", file=log)
 
     ctx = Context(cell=cell, setup_s=setup["seconds"], prepare_s=prepare_s, window=window,
-                  trace=tracer.stats if tracer else None, J=J, p=p, n=n, k=k)
+                  trace=tracer.stats if tracer else None, J=J, p=p, n=n, k=k,
+                  path=path)
     names, kind = (cell.per_layer, "metrics") if trace else (cell.end_to_end, "e2e")
     metrics = {}
     for name in names:

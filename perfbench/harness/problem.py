@@ -10,6 +10,11 @@ rows G (m − n, n) come from a ``torch.Generator`` on the card, the product
 G·A is taken there in float64, and every right-hand side is B = A·X with X
 drawn on the card, so each system is consistent with the float32 A that both
 the program and the reference are handed.
+
+A configuration's ``problem`` may name its ``form``: ``"dense"`` (the
+default) is the augmented system above; ``"coo"`` is the square core alone,
+held as host coordinates and never densified, for the program's matrix-free
+path. Eq. 8's G·A rows are dense, so the ``"coo"`` form takes m = n.
 """
 from __future__ import annotations
 
@@ -63,32 +68,70 @@ def augment(a_sq: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return torch.cat([a_sq, g @ a_sq])
 
 
+FORMS = ("dense", "coo")
+
+
+@dataclasses.dataclass(frozen=True)
+class Coords:
+    """A sparse matrix as plain host coordinates, sorted by row and then
+    column, without duplicates: the ``"coo"`` form's A."""
+
+    rows: np.ndarray  # (nnz,) int32
+    cols: np.ndarray  # (nnz,) int32
+    vals: np.ndarray  # (nnz,) float32
+    shape: tuple[int, int]
+
+    def sparse64(self, device) -> torch.Tensor:
+        """The matrix as a float64 sparse COO tensor on ``device``."""
+        idx = torch.as_tensor(np.stack([self.rows, self.cols]), device=device).long()
+        vals = torch.as_tensor(self.vals, device=device).double()
+        return torch.sparse_coo_tensor(idx, vals, self.shape, check_invariants=True).coalesce()
+
+
 @dataclasses.dataclass
 class System:
     """One seed's system: A as handed to both sides, and a generator of
     consistent right-hand sides on the card."""
 
-    A: torch.Tensor  # (m, n) float32, on the device
+    A: torch.Tensor | Coords  # dense: (m, n) float32 on the device; coo: host coordinates
     seed: int
+    device: torch.device
 
     def rhs(self, k: int, purpose: int) -> torch.Tensor:
         """B = A·X (m, k), float32, for X (n, k) drawn on the device from
-        the run's seed and ``purpose``; the product is taken in float64."""
-        gen = torch.Generator(device=self.A.device)
+        the run's seed and ``purpose``; the product is taken in float64,
+        a sparse one for the ``"coo"`` form."""
+        gen = torch.Generator(device=self.device)
         gen.manual_seed(sub_seed(self.seed, 1000 + purpose))
-        x = torch.randn((self.A.shape[1], k), generator=gen, device=self.A.device,
+        x = torch.randn((self.A.shape[1], k), generator=gen, device=self.device,
                         dtype=torch.float64)
+        if isinstance(self.A, Coords):
+            return torch.sparse.mm(self.A.sparse64(self.device), x).float()
         return (self.A.double() @ x).float()
+
+    def host(self):
+        """A on the host: the (m, n) float32 array, or the coordinates."""
+        return self.A if isinstance(self.A, Coords) else self.A.cpu().numpy()
 
 
 def make_system(problem: dict, seed: int, device) -> System:
     """The configuration's system for ``seed``: ``problem`` holds m, n,
-    sparsity, value_mean and value_std."""
+    sparsity, value_mean and value_std, and optionally ``form``."""
     n, m = int(problem["n"]), int(problem["m"])
+    form = problem.get("form", "dense")
+    if form not in FORMS:
+        raise ValueError(f"problem form must be one of {FORMS}, got {form!r}")
+    if form == "coo" and m != n:
+        raise ValueError(f"the coo form is the square core alone (eq. 8's rows are dense): "
+                         f"m = n, got m={m}, n={n}")
+    device = torch.device(device)
     rows, cols, vals = schenk_core(
         n, float(problem["sparsity"]), float(problem["value_mean"]),
         float(problem["value_std"]), sub_seed(seed, 0),
     )
+    if form == "coo":
+        return System(A=Coords(rows, cols, vals.astype(np.float32), (n, n)), seed=int(seed),
+                      device=device)
     a_sq = dense_core(rows, cols, vals, n, device)
     gen = torch.Generator(device=device)
     gen.manual_seed(sub_seed(seed, 1))
@@ -96,4 +139,4 @@ def make_system(problem: dict, seed: int, device) -> System:
     g /= np.sqrt(n)
     a = augment(a_sq, g).float()
     del a_sq, g
-    return System(A=a, seed=int(seed))
+    return System(A=a, seed=int(seed), device=device)

@@ -1,6 +1,8 @@
 """Shared arithmetic of the metric readers (``perfbench/e2e/*.py`` and
 ``perfbench/metrics/*.py``). A reader returns None where its cell gives it
-nothing to read; a share of a roofline or a peak is never made up as 0."""
+nothing to read; a share of a roofline or a peak is never made up as 0.
+The shares below count the operations and bytes of the dense solver
+(``harness/counts.py``), so on a matrix-free context they read None."""
 from __future__ import annotations
 
 import numpy as np
@@ -45,11 +47,15 @@ def kernel_roofline(ctx, kernels: tuple[str, ...], least_s: float) -> float | No
 
 
 def consensus_update_roofline(ctx) -> float | None:
+    if ctx.path != "dense":
+        return None
     least = counts.least_seconds(*counts.consensus_update_call(ctx.J, ctx.p, ctx.n, ctx.k))
     return kernel_roofline(ctx, ("wv_kernel", "update_kernel"), least)
 
 
 def trisolve_roofline(ctx) -> float | None:
+    if ctx.path != "dense":
+        return None
     least = counts.least_seconds(*counts.trisolve_call(ctx.J, ctx.p, ctx.k))
     return kernel_roofline(ctx, ("trisolve_kernel",), least)
 
@@ -58,6 +64,8 @@ def solve_mfu(ctx) -> float | None:
     """100 × the solves' least time over their measured time, over the
     solves before the traced stretch (closed loop) or the clean served
     batches (their server-side solve_ms)."""
+    if ctx.path != "dense":
+        return None
     if is_served(ctx):
         batches = served_batches(ctx)
         if not batches:

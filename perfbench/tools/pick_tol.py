@@ -36,7 +36,7 @@ def main(argv=None) -> int:
     config = json.loads(Path(args.config).read_text())
     system = problem.make_system(config["problem"], args.seed, args.device)
     B = system.rhs(args.k, purpose=0)
-    A = system.A.cpu().numpy()
+    A = system.host()
     del system
     ref = dapc.build(A, config, "float64", args.device)
     hist, _ = ref.run(B, args.cap)

@@ -35,23 +35,24 @@ def control_numbers(cell, seed: int, seconds: float, device) -> dict:
     epochs = int(mix["epochs"])
     system = problem.make_system(config["problem"], seed, device)
     load = traffic.make_load(mix, system, seed, seconds)
-    A = system.A.cpu().numpy()
+    plain = system.host()
     del system
+    n = plain.shape[1]
     if mix["kind"] == "closed_loop":
-        shells = [compare.Answer(b=b, x=np.zeros((A.shape[1], b.shape[1])),
+        shells = [compare.Answer(b=b, x=np.zeros((n, b.shape[1])),
                                  iterations=None, history=None) for b in load.pool]
     else:
-        shells = [compare.Answer(b=load.rhs[:, i:i + 1], x=np.zeros((A.shape[1], 1)),
+        shells = [compare.Answer(b=load.rhs[:, i:i + 1], x=np.zeros((n, 1)),
                                  iterations=None, history=None)
                   for i in range(load.rhs.shape[1])]
         shells = cell_mod.sample_answers(shells, seed, int(mix.get("sample", 256)),
                                          by_epochs=False)
     ref_mod = cell_mod.load_reference(config)
-    lower = ref_mod.build(A, config, "tf32", device)
+    lower = ref_mod.build(plain, config, "tf32", device)
     answers = compare.control_answers(lower, shells, epochs, tol)
     del lower
     compare.free_device()
-    ref = ref_mod.build(A, config, "float64", device)
+    ref = ref_mod.build(plain, config, "float64", device)
     return compare.judge(ref, answers, epochs, tol)
 
 

@@ -47,7 +47,7 @@ def main(argv=None) -> int:
     for rate in (float(r) for r in args.rates.split(",")):
         mix["rate_per_s"] = rate
         load = traffic.make_load(mix, system, args.seed, args.seconds)
-        A = system.A.cpu().numpy()
+        A = cell_mod.program_matrix(system.host())
         server = SolveServer(max_batch=int(mix["max_batch"]),
                              max_wait_ms=float(mix["max_wait_ms"]),
                              num_epochs=int(mix["epochs"]), tol=tol, pool_size=1,

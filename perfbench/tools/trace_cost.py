@@ -58,7 +58,7 @@ def main(argv=None) -> int:
         ap.error("a closed-loop cell")
     system = problem.make_system(c.config["problem"], args.seed, device)
     load = traffic.make_load(c.mix, system, args.seed, 1.0)
-    A = system.A.cpu().numpy()
+    A = cell_mod.program_matrix(system.host())
     del system
     prep = prepare(A, **{**c.config["prepare"], "device": device})
     options = SolveOptions(num_epochs=int(c.mix["epochs"]), tol=traffic.tolerance(c.mix, c.config))
