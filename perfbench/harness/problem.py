@@ -15,6 +15,16 @@ A configuration's ``problem`` may name its ``form``: ``"dense"`` (the
 default) is the augmented system above; ``"coo"`` is the square core alone,
 held as host coordinates and never densified, for the program's matrix-free
 path. Eq. 8's G·A rows are dense, so the ``"coo"`` form takes m = n.
+
+A ``"coo"`` problem names its matrix: its core is drawn from the
+configuration's ``matrix_seed`` and not from the run's seed. A deployment
+prepares one matrix and solves many right-hand sides against it, and the
+matrix-free solver's device memory (ELL width, packed forms, Gram shards)
+follows the sparsity pattern, so the pattern belongs to the configuration
+and only the right-hand sides to the run. At ``matrix_seed`` S the core is
+the dense form's core at run seed S. The dense form's memory follows its
+shapes alone; it draws its matrix from the run's seed and takes no
+``matrix_seed``.
 """
 from __future__ import annotations
 
@@ -114,9 +124,26 @@ class System:
         return self.A if isinstance(self.A, Coords) else self.A.cpu().numpy()
 
 
+def _matrix_seed(problem: dict, form: str, seed: int) -> int:
+    """The seed of the core: a ``"coo"`` problem's ``matrix_seed``, the
+    run's ``seed`` for the dense form."""
+    if form == "dense":
+        if "matrix_seed" in problem:
+            raise ValueError("a dense problem takes no 'matrix_seed': its matrix is drawn "
+                             "from the run's seed")
+        return int(seed)
+    value = problem.get("matrix_seed")
+    if isinstance(value, bool) or not isinstance(value, int) or value < 0:
+        raise ValueError(f"a coo problem names its matrix: 'matrix_seed' must be a "
+                         f"non-negative integer, got {value!r}")
+    return value
+
+
 def make_system(problem: dict, seed: int, device) -> System:
     """The configuration's system for ``seed``: ``problem`` holds m, n,
-    sparsity, value_mean and value_std, and optionally ``form``."""
+    sparsity, value_mean and value_std, and optionally ``form``; a
+    ``"coo"`` problem also its ``matrix_seed``. The right-hand sides follow
+    ``seed`` in both forms."""
     n, m = int(problem["n"]), int(problem["m"])
     form = problem.get("form", "dense")
     if form not in FORMS:
@@ -124,10 +151,11 @@ def make_system(problem: dict, seed: int, device) -> System:
     if form == "coo" and m != n:
         raise ValueError(f"the coo form is the square core alone (eq. 8's rows are dense): "
                          f"m = n, got m={m}, n={n}")
+    core_seed = _matrix_seed(problem, form, seed)
     device = torch.device(device)
     rows, cols, vals = schenk_core(
         n, float(problem["sparsity"]), float(problem["value_mean"]),
-        float(problem["value_std"]), sub_seed(seed, 0),
+        float(problem["value_std"]), sub_seed(core_seed, 0),
     )
     if form == "coo":
         return System(A=Coords(rows, cols, vals.astype(np.float32), (n, n)), seed=int(seed),

@@ -3,8 +3,10 @@ reaches the program as its ``COOMatrix``, is prepared on the matrix-free
 path and never densified, and its runs are judged by the test reference;
 the dense form's inputs stay those of the benchmark's cells, to the bit."""
 import hashlib
+import json
 import time
 import types
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -14,7 +16,8 @@ from perfbench.harness import cell as cell_mod
 from perfbench.harness import problem
 from perfbench.tests import matfree_ref, tiny
 
-SEED = 2 ** 33 + 23  # seeds run beyond 32 bits
+SEED = 2 ** 33 + 23  # seeds run beyond 32 bits; tiny.COO_CONFIG's matrix_seed too
+MF2327 = Path(__file__).resolve().parent / "mf2327.json"
 
 
 @pytest.fixture(autouse=True)
@@ -151,7 +154,8 @@ def test_coo_form_is_the_dense_forms_core():
     """The coordinates are the square dense form's A, and B = A·X from the
     sparse product is the dense product's, up to the order of its sums."""
     p = dict(tiny.COO_CONFIG["problem"])
-    coo = problem.make_system(p, SEED, "cpu")
+    assert p.pop("matrix_seed") == SEED
+    coo = problem.make_system({**p, "matrix_seed": SEED}, SEED, "cpu")
     dense = problem.make_system({**p, "form": "dense"}, SEED, "cpu")
     c = coo.A
     assert isinstance(c, problem.Coords) and c.vals.dtype == np.float32
@@ -170,6 +174,83 @@ def test_coo_form_needs_a_square_matrix():
         problem.make_system(p, 0, "cpu")
     with pytest.raises(ValueError, match="form"):
         problem.make_system({**p, "form": "csr"}, 0, "cpu")
+
+
+def _coo_problem(matrix_seed=SEED) -> dict:
+    return {**tiny.COO_CONFIG["problem"], "matrix_seed": matrix_seed}
+
+
+def _same_coords(a, b) -> bool:
+    return a.shape == b.shape and all(np.array_equal(getattr(a, f), getattr(b, f))
+                                      for f in ("rows", "cols", "vals"))
+
+
+def test_coo_matrix_follows_its_matrix_seed_and_the_rhs_the_run_seed():
+    """Two run seeds under one matrix_seed solve one matrix with their own
+    right-hand sides; another matrix_seed draws another matrix."""
+    a, b = (problem.make_system(_coo_problem(), s, "cpu") for s in (SEED, SEED + 1))
+    assert (a.seed, b.seed) == (SEED, SEED + 1)
+    assert _same_coords(a.A, b.A)
+    assert not torch.equal(a.rhs(4, 0), b.rhs(4, 0))
+    other = problem.make_system(_coo_problem(SEED + 1), SEED, "cpu")
+    assert not _same_coords(a.A, other.A)
+
+
+# sha256 (first 16 hex digits) of the "coo" form's rows, cols and vals and of
+# rhs(4, 0) for tiny.COO_CONFIG's problem, as the generator drew them from the
+# run's seed alone before a coo problem named its matrix_seed
+COO_DIGESTS = {
+    SEED: (("d86a7e7c1309d5fd", "94ebddab16926e92", "c562eb5aec5c2e28"), "e4ba056981882c46"),
+    5: (("6fe4892f999c1d6e", "7a063d9d4264d131", "0119a20ea0b69221"), "748c81b4b48ac485"),
+}
+
+
+def _digest(a) -> str:
+    a = a.numpy() if isinstance(a, torch.Tensor) else a
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
+
+
+@pytest.mark.parametrize("seed", sorted(COO_DIGESTS))
+def test_coo_matrix_seed_equal_to_the_run_seed_draws_the_former_system(seed):
+    s = problem.make_system(_coo_problem(seed), seed, "cpu")
+    got = tuple(_digest(getattr(s.A, f)) for f in ("rows", "cols", "vals"))
+    assert (got, _digest(s.rhs(4, 0))) == COO_DIGESTS[seed]
+
+
+_MISSING = object()
+
+
+@pytest.mark.parametrize("matrix_seed", [_MISSING, None, -1, 1.5, "7", True],
+                         ids=["missing", "none", "negative", "float", "str", "bool"])
+def test_coo_problem_must_name_its_matrix(matrix_seed):
+    p = dict(tiny.COO_CONFIG["problem"])
+    del p["matrix_seed"]
+    if matrix_seed is not _MISSING:
+        p["matrix_seed"] = matrix_seed
+    with pytest.raises(ValueError, match="matrix_seed"):
+        problem.make_system(p, SEED, "cpu")
+
+
+def test_dense_problem_takes_no_matrix_seed():
+    with pytest.raises(ValueError, match="matrix_seed"):
+        problem.make_system({**tiny.CONFIG["problem"], "matrix_seed": 0}, 0, "cpu")
+
+
+def test_mf2327_prepared_bytes_repeat_across_run_seeds():
+    """The matrix-free solver's bytes follow the sparsity pattern (its ELL
+    width, the transposed shards, the Gram inverses). At the card
+    configuration's size, three run seeds under its matrix_seed prepare
+    the same bytes; each drawn from its run's seed, the three read
+    11.89-12.27 MB."""
+    from repro_torch.core import prepare
+
+    config = json.loads(MF2327.read_text())["config"]
+    kw = {**config["prepare"], "device": "cpu"}
+    read = []
+    for seed in (2900000901, 2900000902, 2900000903):
+        s = problem.make_system(config["problem"], seed, "cpu")
+        read.append(prepare(cell_mod.program_matrix(s.host()), **kw).memory_bytes)
+    assert read == [read[0]] * 3, read
 
 
 # sha256 (first 16 hex digits) of the dense form's A, B = rhs(4, 0) and

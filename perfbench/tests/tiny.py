@@ -1,8 +1,9 @@
 """Cells small enough for the CPU: the benchmark's code paths at a size a
 test run holds. ``CONFIG`` is the dense form (m = 200, n = 64, J = 8 wide
 blocks); ``COO_CONFIG`` the ``"coo"`` form on the program's matrix-free path
-(square n = 256 at 95%, J = 8, the direct Gram solve), judged by the test
-reference ``perfbench/tests/matfree_ref.py``."""
+(square n = 256 at 95%, J = 8, the direct Gram solve, its matrix drawn from
+its own ``matrix_seed``), judged by the test reference
+``perfbench/tests/matfree_ref.py``."""
 from __future__ import annotations
 
 import copy
@@ -29,7 +30,7 @@ LIMITS = {"x_gap": 1e-4, "resid_gap": 1e-3, "stop_gap": 1e-3}
 
 COO_CONFIG = {
     "problem": {"form": "coo", "m": 256, "n": 256, "sparsity": 0.95, "value_mean": 0.013,
-                "value_std": 24.31},
+                "value_std": 24.31, "matrix_seed": 2 ** 33 + 23},
     "prepare": {"method": "dapc", "num_blocks": 8, "mode": "matfree", "gram_solver": "direct",
                 "use_kernels": True, "gamma": 2.0, "eta": 1.9},
     "tol": 10.0,
