@@ -8,9 +8,11 @@ Every function here is shape-polymorphic over a trailing RHS axis: state is
 ``(J, n)`` for one right-hand side or ``(J, n, k)`` for a k-system batch.
 The reference's ``lax.scan`` becomes a loop that queues device work only:
 no host sync (the ``tol`` freeze stays on the device as a ``torch.where``
-mask; the host learns that every column has frozen from a poll that never
-blocks it), histories are written into preallocated ``(E, …)`` tensors, and
-the ``avg_every`` schedule is a Python bool per epoch.
+mask; the host learns that every column has frozen from a poll it reads
+once the copy has landed, and waits for one only to keep its lead over the
+card within ``MAX_LEAD`` epochs), histories are written into preallocated
+``(E, …)`` tensors, and the ``avg_every`` schedule is a Python bool per
+epoch.
 """
 from __future__ import annotations
 
@@ -21,10 +23,18 @@ from typing import Callable
 import torch
 
 # Under ``tol``, the epochs between two polls of the freeze mask. A poll is
-# one reduction and a one-byte copy to the host; at most this many epochs
-# run after the poll that first reads every column frozen is issued.
+# one reduction and a one-byte copy to the host.
 POLL_EVERY = 4
-_POLL_SLOTS = 64  # polls in flight at most; the host skips a poll beyond
+# Under ``tol`` on a CUDA device, how far the poll the host must have read
+# may lie behind the poll it queues: before it queues the poll of epoch t it
+# reads the poll of epoch t − MAX_LEAD, waiting for it if it has not landed.
+# So the host leads the card by at most MAX_LEAD + POLL_EVERY epochs, and
+# the loop ends at most MAX_LEAD epochs after the poll that first reads
+# every column frozen. When a wait returns, the card still holds the
+# MAX_LEAD epochs queued after that poll, and the host queues the next
+# POLL_EVERY in a fraction of their time.
+MAX_LEAD = 8
+_POLL_SLOTS = MAX_LEAD // POLL_EVERY  # polls in flight at most
 _poll_buffers = threading.local()
 
 
@@ -53,7 +63,8 @@ def _block_col(v, ndim: int):
 
 def _poll_buffer(stream):
     """A pinned ``(_POLL_SLOTS,)`` bool host buffer, its numpy view and one
-    CUDA event per slot, made once per host thread and CUDA stream. A
+    CUDA event per slot, made once per host thread and CUDA stream. Within
+    a solve a slot is reused only once the host has read its poll. A
     stream runs its copies in the order they were queued, so a poll still
     in flight when its solve returns lands before any poll of a later solve
     that reuses its slot, and the later poll's event completes after it."""
@@ -66,15 +77,20 @@ def _poll_buffer(stream):
 
 class _FreezePoll:
     """Whether the ``tol`` mask has frozen every column, as far as the host
-    can see without waiting. Every ``POLL_EVERY`` epochs ``frozen`` queues
-    ``active.any()``, copies it without blocking into a slot of a pinned
-    buffer and records an event; at every epoch it reads the polls whose
-    events have completed, oldest first. On a CPU device the flag is read
-    in place, at once. ``copied`` counts the flags copied, one byte each."""
+    has read. Every ``POLL_EVERY`` epochs ``frozen`` queues ``active.any()``,
+    copies it without blocking into a slot of a pinned buffer and records
+    an event; at every epoch it reads the polls whose events have
+    completed, oldest first. A poll takes the slot of the poll
+    ``MAX_LEAD`` epochs back, so when that one is still unread the host
+    reads it first, waiting on its event if the copy has not landed: the
+    host's lead over the card stays capped. On a CPU device the flag is
+    read in place, at once. ``copied`` counts the flags copied, one byte
+    each; ``lead_waits`` the waits on an event not yet complete."""
 
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"
         self.copied = 0
+        self.lead_waits = 0
         self.pending: collections.deque = collections.deque()  # slots in flight, oldest first
         if self.cuda:
             self.stream = torch.cuda.current_stream(device)
@@ -86,12 +102,18 @@ class _FreezePoll:
         if (t + 1) % POLL_EVERY == 0:
             if not self.cuda:
                 return not bool(active.any())
-            if len(self.pending) < _POLL_SLOTS:
-                slot = self.copied % _POLL_SLOTS
-                self.copied += 1
-                self.flags[slot].copy_(active.any(), non_blocking=True)
-                self.events[slot].record(self.stream)
-                self.pending.append(slot)
+            if len(self.pending) == _POLL_SLOTS:  # the poll of epoch t − MAX_LEAD, unread
+                slot = self.pending.popleft()
+                if not self.events[slot].query():
+                    self.lead_waits += 1
+                    self.events[slot].synchronize()  # releases the GIL while it waits
+                if not self.view[slot]:
+                    return True
+            slot = self.copied % _POLL_SLOTS
+            self.copied += 1
+            self.flags[slot].copy_(active.any(), non_blocking=True)
+            self.events[slot].record(self.stream)
+            self.pending.append(slot)
         while self.pending and self.events[self.pending[0]].query():
             if not self.view[self.pending.popleft()]:
                 return True
@@ -131,15 +153,17 @@ def run_consensus(
     ``torch.where`` mask — while the batch keeps its shape. The mask reads
     the residual carried from the previous epoch. Requires (blocks, bvecs).
     Once every column has frozen, x̄ and the metrics no longer change, so
-    the loop ends as soon as a poll of the mask (every ``POLL_EVERY``
-    epochs, read without blocking the host) finds no column active, and the
+    the loop ends as soon as the host reads a poll of the mask (every
+    ``POLL_EVERY`` epochs; on a CUDA device read once its copy has landed,
+    at most ``MAX_LEAD`` epochs later) that finds no column active, and the
     remaining history rows repeat the last one computed: the result is the
     one the full cap gives, bit for bit. A column that never freezes runs
     the cap.
 
-    ``stats``, a dict, receives ``epochs`` (the epochs run) and
-    ``poll_bytes`` (the bytes the polls copied to the host; none on a CPU
-    device, where the flag is read in place).
+    ``stats``, a dict, receives ``epochs`` (the epochs run), ``poll_bytes``
+    (the bytes the polls copied to the host; none on a CPU device, where
+    the flag is read in place) and ``lead_waits`` (the times the host
+    waited for a poll to land, to keep within ``MAX_LEAD``).
 
     ``compress="bf16_delta"`` communicates the delta mean(x)−x̄ in bf16
     (eq. 7 rewritten as x̄ += η·Δ).
@@ -227,7 +251,9 @@ def run_consensus(
         for h in hist.values():
             h[ran:] = h[ran - 1]
     if stats is not None:
-        stats.update(epochs=ran, poll_bytes=poll.copied if tol is not None else 0)
+        polled = tol is not None
+        stats.update(epochs=ran, poll_bytes=poll.copied if polled else 0,
+                     lead_waits=poll.lead_waits if polled else 0)
     hist["initial"] = init_metrics
     return xbar, hist
 

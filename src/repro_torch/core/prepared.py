@@ -291,41 +291,55 @@ SOLVER_COUNTERS = {
     "solver_early_stops_total": "solves that ended before the cap: every column frozen by tol",
     "solver_host_syncs_total":
         "calls that block the host on the device: each blocking copy in or out, the "
-        "synchronize (the tol polls do not block)",
+        "synchronize (not the tol polls, nor the waits that cap the host's lead: "
+        "solver_lead_waits_total)",
     "solver_copy_bytes_total":
         "bytes copied between host and device, by direction (the tol polls' flags included)",
+    "solver_lead_waits_total":
+        "waits on a tol poll whose copy had not landed, to keep the host within "
+        "consensus.MAX_LEAD epochs of the card (not in solver_host_syncs_total)",
+    "solver_overrun_epochs_total":
+        "epochs a tol solve ran after its last column froze (0 at the cap or without tol)",
 }
 
 
-def active_column_epochs(history: dict, num_epochs: int, k: int, tol) -> int:
-    """Column-epochs the ``tol`` mask let run: column c is active in epoch
-    t iff the residual it started t from (epoch t − 1's, or the initial
-    one) is above tol², compared in the history's dtype as
-    ``run_consensus`` compares it. Without ``tol`` every one is."""
+def active_epochs(history: dict, num_epochs: int, k: int, tol) -> np.ndarray:
+    """Per column, the epochs the ``tol`` mask let run: column c is active
+    in epoch t iff the residual it started t from (epoch t − 1's, or the
+    initial one) is above tol², compared in the history's dtype as
+    ``run_consensus`` compares it. Without ``tol`` every one is. A frozen
+    column stays frozen, so this is also the epoch it froze at: the first
+    whose residual is at or below tol² (``num_epochs`` where none is)."""
     if tol is None:
-        return num_epochs * k
+        return np.full(k, num_epochs)
     r = np.asarray(history["residual_sq"]).reshape(num_epochs, -1)
     r0 = np.asarray(history["initial"]["residual_sq"]).reshape(1, -1)
     start = np.concatenate([r0, r[:-1]], axis=0)
-    return int(np.count_nonzero(start > start.dtype.type(float(tol) * float(tol))))
+    return np.count_nonzero(start > start.dtype.type(float(tol) * float(tol)), axis=0)
 
 
-def count_solve(*, epochs: int, cap: int, k: int, active: int, moved_in, moved_out,
-                poll_bytes: int = 0) -> None:
+def count_solve(*, epochs: int, cap: int, k: int, active: np.ndarray, moved_in, moved_out,
+                poll_bytes: int = 0, lead_waits: int = 0) -> None:
     """Bump the solver's counters in ``repro_torch.obs.metrics.REGISTRY``
-    for one solve that ran ``epochs`` of its ``cap``, copied the tensors
+    for one solve that ran ``epochs`` of its ``cap``, let column c run
+    ``active[c]`` of them (``active_epochs``), copied the tensors
     ``moved_in`` to the device and ``moved_out`` back, each in one blocking
-    call, synchronized once, and copied ``poll_bytes`` of ``tol`` polls
-    back without blocking. Counted from the shapes: on a CPU device the
-    same blocking calls are counted, although they cross nothing (its
-    polls read the flag in place and copy nothing)."""
+    call, synchronized once, copied ``poll_bytes`` of ``tol`` polls back
+    without blocking and waited ``lead_waits`` times for one to land.
+    Counted from the shapes: on a CPU device the same blocking calls are
+    counted, although they cross nothing (its polls read the flag in place
+    and copy nothing)."""
     registry = obs_metrics.REGISTRY
     c = {name: registry.counter(name, help) for name, help in SOLVER_COUNTERS.items()}
     c["solver_solves_total"].inc()
     c["solver_epochs_total"].inc(epochs)
     c["solver_column_epochs_total"].inc(epochs * k)
-    c["solver_active_column_epochs_total"].inc(active)
+    c["solver_active_column_epochs_total"].inc(int(np.sum(active)))
     c["solver_early_stops_total"].inc(int(epochs < cap))
+    # the last column's freeze epoch is the most epochs any column ran; a
+    # solve that reached the cap has a column that never froze, or no tol
+    c["solver_overrun_epochs_total"].inc(epochs - int(np.max(active)) if epochs < cap else 0)
+    c["solver_lead_waits_total"].inc(lead_waits)
     c["solver_host_syncs_total"].inc(len(moved_in) + 1 + len(moved_out))
     copies = c["solver_copy_bytes_total"]
     copies.labels(direction="h2d").inc(sum(t.numel() * t.element_size() for t in moved_in))
@@ -435,7 +449,7 @@ class PreparedSolver:
         RHS, so this reuses the cached factors on the shifted residual. The
         masked form (x0, mask) zeroes cold columns' shift. ``phase`` records
         the substitution (``solver.init``) and the loop (``solver.epochs``);
-        ``stats`` receives the loop's epochs run and poll bytes.
+        ``stats`` receives the loop's epochs run, poll bytes and lead waits.
         """
         with phase("solver.init"):
             if x0 is not None:
@@ -499,7 +513,8 @@ class PreparedSolver:
         solve records ``solver.solve`` and its phases ``solver.rhs`` (host
         mixing, the copies in), ``solver.init`` (the substitution),
         ``solver.epochs`` (the loop, queued without a host sync; under
-        ``tol`` it ends once a non-blocking poll finds every column frozen),
+        ``tol`` it ends once a poll finds every column frozen, and waits
+        for a poll only to keep within ``consensus.MAX_LEAD`` epochs),
         ``solver.wait`` and ``solver.fetch`` (the copies out). After the
         fetch it bumps the ``SOLVER_COUNTERS`` once, on the host.
         """
@@ -541,7 +556,7 @@ class PreparedSolver:
                         moved_in.append(warm)
                     gamma_op, eta_op = self._dynamics_operands(gamma, eta, per_block)
                     moved_in += [gamma_op, eta_op]
-            stats = {"epochs": num_epochs, "poll_bytes": 0}
+            stats = {"epochs": num_epochs, "poll_bytes": 0, "lead_waits": 0}
             if consensus_method:
                 x, hist = self._solve_phase(
                     bvecs, gamma_op, eta_op, num_epochs, ref, xbar0, warm, kwargs, phase,
@@ -564,10 +579,10 @@ class PreparedSolver:
                 history = _to_numpy(hist)
             count_solve(
                 epochs=stats["epochs"], cap=num_epochs, k=k,
-                active=active_column_epochs(
+                active=active_epochs(
                     history, num_epochs, k, tol if consensus_method else None),
                 moved_in=moved_in, moved_out=[x] + _leaves(hist),
-                poll_bytes=stats["poll_bytes"],
+                poll_bytes=stats["poll_bytes"], lead_waits=stats["lead_waits"],
             )
             return SolveResult(
                 x=x_host,

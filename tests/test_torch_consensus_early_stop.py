@@ -3,8 +3,9 @@ poll of the freeze mask that finds every column frozen, and its x̄ and
 every history leaf are bit for bit those of the masked loop run to the cap
 (``oracle`` below, the loop as it was before the stop). On the CPU each
 poll is read at once, in place, so the epochs run follow from the freeze
-epochs and ``POLL_EVERY`` exactly. The card test does the same on a CUDA device and
-checks that no poll blocks the host.
+epochs and ``POLL_EVERY`` exactly. On a scripted card the host's lead stays
+within ``MAX_LEAD`` epochs. The card test does the same on a CUDA device and
+checks that the host waits on no more than a poll's event, once per poll.
 
 Small sizes, on the CPU: m = 200, n = 64, J = 8 wide blocks, k = 4.
 """
@@ -12,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import consensus, dapc, prepare
+from repro_torch.core import consensus, dapc, prepare, prepared
 from repro_torch.core.consensus import _block_col, _match_rhs, block_residual_sq
 from repro_torch.core.partition import block_rhs
 
@@ -162,16 +163,121 @@ def test_stops_at_the_first_poll_after_the_last_freeze_bit_for_bit(system, case)
     got_x, got = consensus.run_consensus(*args, **kwargs, stats=stats)
     _same_result(got_x, got, want_x, want)
     if tol is None:
-        assert stats == {"epochs": CAP, "poll_bytes": 0}
+        assert stats == {"epochs": CAP, "poll_bytes": 0, "lead_waits": 0}
         return
     ran = _expected_epochs(want, tol, CAP)
-    assert stats == {"epochs": ran, "poll_bytes": 0}  # the CPU reads each flag in place
+    # the CPU reads each flag in place: nothing copied, nothing waited for
+    assert stats == {"epochs": ran, "poll_bytes": 0, "lead_waits": 0}
     if case == "never_freezes":
         assert ran == CAP
         final = want["residual_sq"][-1]
         assert final[-1] > tol * tol and (final[:-1] <= tol * tol).all()
     else:
         assert ran <= CAP // 2  # every column froze well before the cap
+
+
+class _ScriptedCard:
+    """The stream's pinned flags and events as ``_FreezePoll`` sees them on
+    a CUDA device, on a scripted card that runs ``speed`` epochs for each
+    epoch the host issues (never past the last one issued). A poll's flag
+    lands, and its event completes, once the card has run the poll's epoch;
+    a wait on an event runs the card up to it; a flag read before it lands
+    fails the test."""
+
+    def __init__(self, speed: float):
+        self.speed, self.done, self.issued = speed, -1.0, -1
+        self.copies, self.waits = {}, []  # slot: (epoch, flag); per wait: was it complete
+        self.flags_copied = 0
+        card = self
+
+        class Slot:
+            def __init__(self, i):
+                self.i = i
+
+            def copy_(self, src, non_blocking=False):
+                assert non_blocking
+                card.copies[self.i] = (card.issued, bool(src))
+                card.flags_copied += 1
+
+        class Event:
+            epoch = None
+
+            def record(self, stream):
+                self.epoch = card.issued
+
+            def query(self):
+                return card.done >= self.epoch
+
+            def synchronize(self):
+                card.waits.append(self.query())
+                card.done = max(card.done, self.epoch)
+
+        class View:
+            def __getitem__(self, i):
+                epoch, flag = card.copies[i]
+                assert card.done >= epoch, "a flag read before its copy landed"
+                return flag
+
+        slots = range(consensus._POLL_SLOTS)
+        self.buffer = [Slot(i) for i in slots], View(), [Event() for _ in slots]
+
+    def issue(self, t: int):
+        """The host has queued epoch ``t``; the card runs on meanwhile."""
+        self.issued = t
+        self.done = min(float(t), self.done + self.speed)
+
+
+LEAD_CASES = {  # the epoch each column freezes at (runs that many epochs); None: never
+    "freeze_early": [5, 9, 12, 14],
+    "freeze_late": [40, 61, 77, 79],
+    "never_freezes": [20, 30, 40, None],
+    "single_rhs": 33,
+}
+
+
+@pytest.mark.parametrize("speed", [1.0, 0.5, 0.2], ids=["keeps_up", "half", "fifth"])
+@pytest.mark.parametrize("case", list(LEAD_CASES))
+def test_the_host_leads_the_card_by_at_most_max_lead(monkeypatch, case, speed):
+    """``_FreezePoll.frozen`` driven as ``run_consensus`` drives it, through
+    scripted masks on a scripted card: the host never issues an epoch more
+    than ``MAX_LEAD + POLL_EVERY`` past the oldest poll it has not read, nor
+    past the card; it stops at the first poll that reads every column
+    frozen, or at most ``MAX_LEAD`` epochs after it; it waits only on
+    events not yet complete, and counts each such wait."""
+    card = _ScriptedCard(speed)
+    monkeypatch.setattr(consensus, "_poll_buffer", lambda stream: card.buffer)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: "stream")
+    freeze = LEAD_CASES[case]
+    f = torch.tensor([float("inf") if e is None else e for e in np.atleast_1d(freeze)])
+    if np.ndim(freeze) == 0:
+        f = f[0]
+    poll = consensus._FreezePoll(torch.device("cuda"))
+    c, most = consensus.POLL_EVERY, consensus.MAX_LEAD + consensus.POLL_EVERY
+    stop = None
+    for t in range(CAP - 1):  # run_consensus polls after every epoch but the last
+        card.issue(t)
+        if poll.pending:
+            assert t - card.buffer[2][poll.pending[0]].epoch <= most
+        assert t - card.done <= most
+        if poll.frozen(t + 1 < f, t):  # the next epoch's mask
+            stop = t
+            break
+        assert len(poll.pending) <= consensus._POLL_SLOTS
+    frozen_at = next((t for t in range(c - 1, CAP - 1, c) if not (t + 1 < f).any()), None)
+    if frozen_at is None:
+        assert stop is None and case == "never_freezes"
+    else:
+        assert frozen_at <= stop <= frozen_at + consensus.MAX_LEAD
+        assert stop <= frozen_at + most - 1
+        if speed == 1.0:  # every copy lands at once: the stop of the CPU
+            assert stop == frozen_at
+    assert poll.copied == card.flags_copied
+    assert not any(card.waits)  # a wait only on an event not yet complete
+    assert poll.lead_waits == len(card.waits)
+    if speed == 1.0:
+        assert poll.lead_waits == 0
+    elif speed == 0.2:
+        assert poll.lead_waits > 0  # the cap held the host back
 
 
 # The profiled solve of the card test, in a child process: a CUDA profile
@@ -181,6 +287,7 @@ import json, sys
 import numpy as np, torch
 from torch.profiler import ProfilerActivity, profile
 from repro_torch.core import prepare
+from repro_torch.obs import metrics
 out, tol = sys.argv[1], float(sys.argv[2])
 torch.backends.cuda.matmul.allow_tf32 = False
 rng = np.random.default_rng(11)
@@ -188,20 +295,25 @@ A = rng.standard_normal((8192, 2048)).astype(np.float32)
 B = A @ rng.standard_normal((2048, 32)).astype(np.float32)
 prep = prepare(A, **json.loads(sys.argv[3]), device="cuda")
 prep.solve(B, num_epochs=300, tol=tol)  # warm
+before = metrics.REGISTRY.value("solver_epochs_total")
 with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
     res = prep.solve(B, num_epochs=300, tol=tol)
 prof.export_chrome_trace(out + ".json")
 np.save(out + ".npy", res.history["residual_sq"])
+with open(out + ".epochs", "w") as f:
+    f.write(repr(metrics.REGISTRY.value("solver_epochs_total") - before))
 """
 
 
 @pytest.mark.gpu
-def test_on_the_card_the_stop_is_bit_for_bit_and_never_blocks_the_host(tmp_path):
+def test_on_the_card_the_stop_is_bit_for_bit_and_the_host_waits_only_on_a_poll(tmp_path):
     """A random consistent system on the card, J = 8 wide, k = 32, cap 300,
     ``tol`` at the largest residual of epoch 100: the solve stops before
-    the cap, its x̄ and history equal the oracle's bit for bit (also with
-    two threads solving at once), and no call inside ``solver.epochs`` of a
-    profiled solve waits for the device."""
+    the cap and at most ``MAX_LEAD + POLL_EVERY`` epochs past the last
+    freeze rounded up to a poll, its x̄ and history equal the oracle's bit
+    for bit (also with two threads solving at once), and inside
+    ``solver.epochs`` of a profiled solve the host waits for the device
+    only on a poll's event, at most once a poll."""
     import json
     import os
     import subprocess
@@ -225,8 +337,16 @@ def test_on_the_card_the_stop_is_bit_for_bit_and_never_blocks_the_host(tmp_path)
     stats = {}
     got_x, got = consensus.run_consensus(*args, blocks=prep.blocks, bvecs=bvecs, tol=tol,
                                          stats=stats)
-    assert stats["epochs"] < cap
-    assert stats["poll_bytes"] == stats["epochs"] // consensus.POLL_EVERY
+    c = consensus.POLL_EVERY
+    last_freeze = int(prepared.active_epochs(
+        {"residual_sq": want["residual_sq"].cpu().numpy(),
+         "initial": {"residual_sq": want["initial"]["residual_sq"].cpu().numpy()}},
+        cap, k, tol).max())
+    most = -(-last_freeze // c) * c + consensus.MAX_LEAD + c
+    assert last_freeze <= stats["epochs"] <= most and stats["epochs"] < cap
+    # one flag a poll; none for the poll of the epoch the stop came at,
+    # where the host read the poll MAX_LEAD back before queueing its own
+    assert stats["epochs"] // c - 1 <= stats["poll_bytes"] <= stats["epochs"] // c
     _same_result(got_x, got, want_x, want)
 
     # two threads at once on the same stream, each polling its own buffer
@@ -254,14 +374,45 @@ def test_on_the_card_the_stop_is_bit_for_bit_and_never_blocks_the_host(tmp_path)
                           cwd=root, env=env, capture_output=True, text=True, timeout=600)
     assert done.returncode == 0, done.stderr[-3000:]
     np.testing.assert_array_equal(np.load(out + ".npy"), want["residual_sq"].cpu().numpy())
+    profiled = float(Path(out + ".epochs").read_text())
+    assert last_freeze <= profiled <= most and profiled < cap
     events = [e for e in json.loads(Path(out + ".json").read_text())["traceEvents"]
               if e.get("ph") == "X"]
     (loop,) = [e for e in events if e["name"] == "solver.epochs"]
     inside = [e["name"] for e in events
               if loop["ts"] <= e["ts"] and e["ts"] + e["dur"] <= loop["ts"] + loop["dur"]]
-    for sync in ("cudaStreamSynchronize", "cudaEventSynchronize", "cudaDeviceSynchronize"):
+    for sync in ("cudaStreamSynchronize", "cudaDeviceSynchronize"):
         assert sync not in inside
     assert "cudaEventQuery" in inside
     polls = [e for e in events if e["name"].startswith("Memcpy DtoH")
              and "Pinned" in e["name"]]
     assert polls and all(int(e["args"]["bytes"]) == 1 for e in polls)
+    assert inside.count("cudaEventSynchronize") <= len(polls)
+
+
+@pytest.mark.gpu
+def test_a_wait_on_a_polls_event_leaves_the_interpreter_to_other_threads():
+    """The lead cap's wait (``Event.synchronize``) releases the GIL: while a
+    thread waits on an event queued behind ~1 s of device work, this thread
+    keeps running Python without a pause near that long."""
+    import threading
+    import time
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000_000)  # ~1 s of clock cycles on one SM
+    event = torch.cuda.Event()
+    event.record()
+    assert not event.query()
+    waiter = threading.Thread(target=event.synchronize)
+    start = last = time.perf_counter()
+    waiter.start()
+    gap = 0.0
+    while waiter.is_alive() and last - start < 60:
+        now = time.perf_counter()
+        gap, last = max(gap, now - last), now
+    waiter.join(timeout=60)
+    assert not waiter.is_alive() and event.query()
+    assert last - start > 0.3  # the wait was long
+    assert gap < 0.1

@@ -127,6 +127,7 @@ def test_counters_equal_their_exact_values(system, registry, tol):
         assert v("solver_column_epochs_total") == 2 * EPOCHS * K
         assert v("solver_active_column_epochs_total") == 2 * EPOCHS * K
         assert v("solver_early_stops_total") == 0
+        assert v("solver_overrun_epochs_total") == 0
     else:
         r0 = np.asarray(results[0].history["initial"]["residual_sq"])
         assert (r0 > tol * tol).all()  # no column starts frozen
@@ -140,6 +141,12 @@ def test_counters_equal_their_exact_values(system, registry, tol):
         assert v("solver_column_epochs_total") == sum(runs) * K
         assert v("solver_active_column_epochs_total") == sum(int(f.sum()) for f in freeze)
         assert v("solver_early_stops_total") == 2
+        # the epochs each solve ran past its last column's freeze
+        assert v("solver_overrun_epochs_total") == sum(
+            ran - int(f.max()) for ran, f in zip(runs, freeze))
+        assert v("solver_overrun_epochs_total") > 0
+    # the CPU reads each poll in place: the host never waits on one
+    assert v("solver_lead_waits_total") == 0
     # in: the blocked rhs, γ and η; out: x, the history and its initial row
     # (the full cap's rows); the polls block nothing, and on the CPU they
     # read the flag in place, copying nothing (the card test counts their
@@ -150,6 +157,34 @@ def test_counters_equal_their_exact_values(system, registry, tol):
     assert reg.total("solver_copy_bytes_total") == (
         v("solver_copy_bytes_total", direction="h2d")
         + v("solver_copy_bytes_total", direction="d2h"))
+
+
+def test_a_column_that_never_freezes_runs_the_cap_with_no_overrun(system, registry):
+    """A column off the range of A keeps its residual above tol²: the
+    solve runs the cap, and no epoch counts as run past a freeze."""
+    A, B = system
+    B = B.copy()
+    B[:, -1] = np.random.default_rng(6).standard_normal(M).astype(np.float32)
+    prep = prepare(A, **KW)
+    res = prep.solve(B, num_epochs=EPOCHS, tol=TOL)
+    freeze = _freeze_epochs(res, TOL)
+    assert (freeze[:-1] < EPOCHS).all() and freeze[-1] == EPOCHS
+    v = registry.value
+    assert v("solver_epochs_total") == EPOCHS and v("solver_early_stops_total") == 0
+    assert v("solver_overrun_epochs_total") == 0 and v("solver_lead_waits_total") == 0
+
+
+def test_the_lead_counters_carry_their_help(system, registry):
+    """The two counters of the lead cap are registered with their help
+    text, which keeps them apart from the blocking calls."""
+    from repro_torch.core.prepared import SOLVER_COUNTERS
+
+    A, B = system
+    prepare(A, **KW).solve(B, num_epochs=EPOCHS, tol=TOL)
+    text = registry.render()
+    for name in ("solver_lead_waits_total", "solver_overrun_epochs_total"):
+        assert f"# HELP {name} {SOLVER_COUNTERS[name]}" in text
+    assert "solver_lead_waits_total" in SOLVER_COUNTERS["solver_host_syncs_total"]
 
 
 def test_a_warm_started_solve_counts_its_operands(system, registry):
