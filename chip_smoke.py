@@ -27,21 +27,19 @@
    with the accelerated (γ, η) = (2.0, 1.9) and the direct Gram solver;
    then ``--mode auto`` at n=16384, 100 epochs, which must resolve the
    matrix-free path with the PCG Gram solver. Each must launch the fused
-   packed pass once per epoch and the staged ELL kernel never, and is checked
-   against the kernels-off solver restored from its own state on the card
-   (within 2.5e-4·max|x|), the n=2327 residual against the JAX package's CPU
-   value. The warm solve's peak device memory and its largest difference
-   from the cold solve are printed, and, ungated, one warm solve of the same
-   solver without the transposed packed form, which takes the staged ELL
-   pass and its ``index_add_`` scatter;
+   packed pass once per epoch, and is checked against the kernels-off solver
+   restored from its own state on the card (within 2.5e-4·max|x|), the
+   n=2327 residual against the JAX package's CPU value. The warm solve's
+   peak device memory and its largest difference from the cold solve are
+   printed;
 6. holds the SpMM kernels against their plain versions on the operators
    those runs prepared (forward, transposed and Gram shards): the
-   packed-nonzero ``spmm_packed`` on each operator's packed form, the fused
-   packed pass on the forward and transposed packed forms (also bit for bit
-   against two ``spmm_packed`` launches), and the blocked-ELL ``spmm_fused``;
-   each timed beside ``torch.sparse.mm`` (cuSPARSE) of the same shards laid
-   out as block-diagonal CSR matrices (one call, or the pair for the fused
-   pass). ``bound_ms`` counts the bytes the product needs (each nonzero's
+   packed-nonzero ``spmm_packed`` on each operator's packed form and the
+   fused packed pass on the forward and transposed packed forms (also bit
+   for bit against two ``spmm_packed`` launches); each timed beside
+   ``torch.sparse.mm`` (cuSPARSE) of the same shards laid out as
+   block-diagonal CSR matrices (one call, or the pair for the fused pass).
+   ``bound_ms`` counts the bytes the product needs (each nonzero's
    value and column, the row pointers, x, y and the outputs once),
    ``bound_ell_ms`` the stored ELL arrays;
 7. runs the dgd and cgnr baselines through ``repro_torch.launch.solve
@@ -57,8 +55,8 @@
    floor at the 300-epoch cap): every update below tol and within 5·tol of
    its cold solve, the session's total epochs at most 0.7x the independent
    total, the watchdog all ok; one warm update's launches counted (one
-   trisolve and 300 consensus updates dense; 300 fused packed passes, the
-   warm start's ``spmm_packed`` and no staged pass matrix-free); the same
+   trisolve and 300 consensus updates dense; 300 fused packed passes and the
+   warm start's ``spmm_packed`` matrix-free); the same
    stream on the kernels-off solver restored from each solver's state,
    held at the solve gates; and one warm-started session solve profiled;
 9. plants a NaN in one column of b on both kernel paths, which the watchdog
@@ -825,7 +823,6 @@ def matfree_run(torch, launch_solve, ops, n, mode, epochs):
     check(record["path"] == "matfree", f"n={n}: path {record['path']}, expected matfree")
     check(launches["spmm"] >= 1 and launches["spmm_fused_packed"] == epochs,
           f"n={n}: expected spmm and one fused packed pass per epoch: {launches}")
-    check(launches["spmm_fused"] == 0, f"n={n}: the staged ELL pass ran: {launches}")
     check(res.x.shape == (n, 32), f"n={n}: solution shape {res.x.shape}")
     check(bool(np.isfinite(res.x).all()), f"n={n}: non-finite solution")
     warm_res, peak, held = peak_memory_solve(torch, prep, b, x_ref, epochs)
@@ -834,13 +831,6 @@ def matfree_run(torch, launch_solve, ops, n, mode, epochs):
     print(f"    warm solve (same prepared solver, second call): {warm:.4f} s, peak device "
           f"memory {peak / 1e6:.3f} MB ({held / 1e6:.3f} MB held before it); "
           f"max |x_cold - x_warm| {cold_vs_warm:.3e}")
-    staged = dataclasses.replace(prep, op=dataclasses.replace(prep.op, tra_packed=None))
-    staged_res, staged_peak, _ = peak_memory_solve(torch, staged, b, x_ref, epochs)
-    print(f"    staged ELL pass + index_add_ scatter (same solver without the transposed "
-          f"packed form, not gated): warm {staged_res.wall_seconds:.4f} s, peak device memory "
-          f"{staged_peak / 1e6:.3f} MB; max |x_staged - x_warm| "
-          f"{float(np.abs(staged_res.x - warm_res.x).max()):.3e}")
-    profile_solve(torch, staged, b, x_ref, epochs, label="the staged warm solve")
     arrays, meta = prep.to_state()
     plain = matfree.MatrixFreePreparedSolver.from_state(
         arrays, {**meta, "use_kernels": False}, device="cuda")
@@ -855,7 +845,7 @@ def matfree_run(torch, launch_solve, ops, n, mode, epochs):
     return {"record": record, "prep": prep, "launches": launches, "host_syncs": syncs,
             "setup_seconds": prep.setup_seconds, "solve_seconds": res.wall_seconds,
             "warm_solve_seconds": warm, "plain_warm_solve_seconds": warm0,
-            "warm_peak_bytes": peak, "staged_peak_bytes": staged_peak,
+            "warm_peak_bytes": peak,
             "max_abs_diff_cold_vs_warm": cold_vs_warm,
             "max_abs_diff_vs_plain": diff, "inner_mean": float(inner.mean()),
             "profile": profile, "x": res.x}
@@ -873,8 +863,8 @@ def block_diag_csr(torch, indices, data, num_col_blocks):
     return coo.coalesce().to_sparse_csr()
 
 
-def spmm_phase(torch, spmm_ops, spmm_plain, spmm_packed_plain, spmm_fused_plain,
-               spmm_fused_packed_plain, op_small, op_big, only=None):
+def spmm_phase(torch, spmm_ops, spmm_plain, spmm_packed_plain, spmm_fused_packed_plain,
+               op_small, op_big, only=None):
     """The SpMM kernels against their plain versions on the card, on the
     operators the matrix-free runs prepared (their packed forms included), at
     k = 32. ``only`` ({label: operator}) measures just the fused packed pass
@@ -886,65 +876,55 @@ def spmm_phase(torch, spmm_ops, spmm_plain, spmm_packed_plain, spmm_fused_plain,
     gen = torch.Generator(device=dev).manual_seed(1)
     results = {}
 
-    def case(name, what, indices, data, packed, xb, y=None, iters=20):
-        fused = y is not None
-        if fused:
-            def run():
-                return spmm_ops.spmm_fused(indices, data, xb, y)
+    def case(name, what, indices, data, packed, xb, iters=20):
+        def run():
+            return (spmm_ops.spmm_packed(packed, xb),)
 
-            def plain():
-                return spmm_fused_plain(indices, data, xb, y)
-        else:
-            def run():
-                return (spmm_ops.spmm_packed(packed, xb),)
+        def plain():  # the packed kernel's plain version: a segment sum
+            return (spmm_packed_plain(packed, xb),)
 
-            def plain():  # the packed kernel's plain version: a segment sum
-                return (spmm_packed_plain(packed, xb),)
         got, want = run(), plain()
         torch.cuda.synchronize()
         err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-        if not fused:  # and the function itself, on the ELL arrays
-            err = max(err, float((got[0] - spmm_plain(indices, data, xb)).abs().max()))
+        # and the function itself, on the ELL arrays
+        err = max(err, float((got[0] - spmm_plain(indices, data, xb)).abs().max()))
         # the reference's own tolerance (tests/test_kernel_spmm.py): atol
         # 1e-4 plus rtol 1e-4 of the largest entry
         tol = min(1e-4 + 1e-4 * float(w.abs().max()) for w in want)
         ms = cuda_ms(torch, run, iters)
         plain_ms = cuda_ms(torch, plain, max(iters // 4, 3))
         dev_ms = device_ms(torch, run, iters)
-        lib = lib_dev = lib_err = None
-        if not fused:
-            C = xb.shape[1]
-            csr = block_diag_csr(torch, indices, data, C)
-            xs = xb.contiguous().reshape(-1, xb.shape[-1])
-            lib_out = torch.sparse.mm(csr, xs)
-            lib_err = float((lib_out.reshape(want[0].shape) - want[0]).abs().max())
-            lib = cuda_ms(torch, lambda: torch.sparse.mm(csr, xs), iters)
-            lib_dev = device_ms(torch, lambda: torch.sparse.mm(csr, xs), iters)
+        C = xb.shape[1]
+        csr = block_diag_csr(torch, indices, data, C)
+        xs = xb.contiguous().reshape(-1, xb.shape[-1])
+        lib_out = torch.sparse.mm(csr, xs)
+        lib_err = float((lib_out.reshape(want[0].shape) - want[0]).abs().max())
+        lib = cuda_ms(torch, lambda: torch.sparse.mm(csr, xs), iters)
+        lib_dev = device_ms(torch, lambda: torch.sparse.mm(csr, xs), iters)
         J, R, S, bp, bn = data.shape
         k = xb.shape[-1]
         s = data.element_size()
         nnz = int(torch.count_nonzero(data))
         x_bytes = xb[0].numel() * s * (1 if xb.stride(0) == 0 else J)
-        io_bytes = x_bytes + sum(t.numel() for t in got) * s + (y.numel() * s if fused else 0)
+        io_bytes = x_bytes + sum(t.numel() for t in got) * s
         # what the product needs: each nonzero's value and column (int32) and
         # the int32 row pointers of the J*R*bp rows; the ELL figure streams
         # every stored tile and tile id
         need = nnz * (s + 4) + (J * R * bp + 1) * 4 + io_bytes
         ell = indices.numel() * 4 + data.numel() * s + io_bytes
-        flops = 2.0 * nnz * k * (2 if fused else 1)
+        flops = 2.0 * nnz * k
         dt = str(data.dtype).split(".")[1]
         b_ms, b_by = bound(need, flops, dt)
         ell_ms, _ = bound(ell, flops, dt)
         results[name] = {
             "shape": f"{what}: indices {tuple(indices.shape)}, tiles {(bp, bn)}, k {k}, "
                      f"{nnz} nonzeros"
-                     + (", x broadcast over J" if xb.stride(0) == 0 else "")
-                     + (", staged contrib" if fused else ""),
+                     + (", x broadcast over J" if xb.stride(0) == 0 else ""),
             "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "bound_ell_ms": ell_ms, "library_ms": lib,
             "device_ms": dev_ms, "library_device_ms": lib_dev,
         }
-        lib_txt = "—" if lib is None else f"{lib:.4f} ms (device {lib_dev:.4f}, err {lib_err:.1e})"
+        lib_txt = f"{lib:.4f} ms (device {lib_dev:.4f}, err {lib_err:.1e})"
         print(f"  {name:24s} err {err:.3e} (tol {tol:.1e})  kernel {ms:.4f} ms (device "
               f"{dev_ms:.4f})  plain {plain_ms:.4f} ms  library "
               f"{lib_txt}  bound {b_ms:.4f} ms ({b_by}, {need / 1e6:.2f} MB, "
@@ -958,7 +938,7 @@ def spmm_phase(torch, spmm_ops, spmm_plain, spmm_packed_plain, spmm_fused_plain,
     def rows(op, k):  # (J, p_pad, k) row-space operand
         return torch.randn(op.num_blocks, op.p_pad, k, generator=gen, device=dev)
 
-    def row_tiles(op, k):  # its (J, R, bp, k) view for the fused kernel
+    def row_tiles(op, k):  # its (J, R, bp, k) view for the fused pass
         return rows(op, k).reshape(op.num_blocks, -1, op.block_shape[0], k)
 
     def fused_packed_case(name, op, iters):
@@ -1034,8 +1014,6 @@ def spmm_phase(torch, spmm_ops, spmm_plain, spmm_packed_plain, spmm_fused_plain,
         fused_packed_case(f"spmm_fused_packed.{label}", op, iters)
         case(f"spmm.fwd.{label}", "forward shards", op.fwd_indices, op.fwd_data,
              op.fwd_packed, col_tiles(op, 32), iters=iters)
-        case(f"spmm_fused.{label}", "forward shards, fused", op.fwd_indices, op.fwd_data,
-             None, col_tiles(op, 32), row_tiles(op, 32), iters=iters)
     case("spmm.fwd.n2327.k1", "forward shards, one RHS", op_small.fwd_indices,
          op_small.fwd_data, op_small.fwd_packed, col_tiles(op_small, 1))
     case("spmm.tra.n16384", "transposed shards", op_big.tra_indices, op_big.tra_data,
@@ -1046,8 +1024,6 @@ def spmm_phase(torch, spmm_ops, spmm_plain, spmm_packed_plain, spmm_fused_plain,
                                    device=dev).with_packed()
     case("spmm.tile16x8", "forward shards, (16, 8) tiles", tall.fwd_indices, tall.fwd_data,
          tall.fwd_packed, col_tiles(tall, 32))
-    case("spmm_fused.tile16x8", "forward shards, (16, 8) tiles, fused", tall.fwd_indices,
-         tall.fwd_data, None, col_tiles(tall, 32), row_tiles(tall, 32))
     return results
 
 
@@ -1252,10 +1228,9 @@ def session_phase(torch, ops, path, make_problem, prepare):
               f"dense update: expected 1 trisolve and a consensus update per epoch run, "
               f"fewer than {STREAM_CAP}: {counted}")
     else:
-        check(counted["spmm_fused_packed"] == STREAM_CAP and counted["spmm_fused"] == 0
-              and counted["spmm"] >= 1,
-              f"matfree update: expected {STREAM_CAP} fused packed passes, spmm_packed for the "
-              f"warm-start projection and no staged pass: {counted}")
+        check(counted["spmm_fused_packed"] == STREAM_CAP and counted["spmm"] >= 1,
+              f"matfree update: expected {STREAM_CAP} fused packed passes and spmm_packed for "
+              f"the warm-start projection: {counted}")
     # kernels on against kernels off, on the same card, the same stream
     arrays, meta = prep.to_state()
     meta = {**meta, "use_kernels": False}
@@ -1439,10 +1414,9 @@ def poisson_phase(torch, ops, path, make_problem, serving, card):
               f"dense served batches: expected 1 trisolve per batch and a consensus update "
               f"per epoch run, fewer than {STREAM_CAP} a batch: {launches} over {nb}")
     else:
-        check(launches["spmm_fused_packed"] == STREAM_CAP * nb and launches["spmm"] >= nb
-              and launches["spmm_fused"] == 0,
+        check(launches["spmm_fused_packed"] == STREAM_CAP * nb and launches["spmm"] >= nb,
               f"matfree served batches: expected {STREAM_CAP} fused packed passes and spmm_packed "
-              f"per batch, no staged pass: {launches} over {nb}")
+              f"per batch: {launches} over {nb}")
     return {"pool": server.pool, "fp": fp, "A": A, "dense": dense, "kw": kw, "rhs": rhs,
             "tol": tol, "gaps": gaps, "direct_x": direct_x, "launches": launches,
             "per_batch": per_batch, "batches": nb, "throughput": n / wall,
@@ -1738,8 +1712,8 @@ def mesh_d1_phase(torch, ops, prepare, tmp):
         check(rel <= 1e-5, f"one-rank mesh: off the unsharded solve by {rel}")
         check(hist_ok, "one-rank mesh: residual history off the unsharded one")
         check(np.array_equal(its, its_single), "one-rank mesh: iterations_to_tol differ")
-        check(launches["spmm_fused_packed"] == 300 and launches["spmm_fused"] == 0,
-              f"one-rank mesh: expected 300 fused packed passes, no staged pass: {launches}")
+        check(launches["spmm_fused_packed"] == 300,
+              f"one-rank mesh: expected 300 fused packed passes: {launches}")
         nk = MESH_N * 32
         check((audit["ops"], audit["payload_elems"]) == (1, nk)
               and (audit_tol["ops"], audit_tol["payload_elems"]) == (2, nk + 32),
@@ -1797,7 +1771,7 @@ def mesh_d4_run(label, n, epochs, single, tmp):
     for r in rec["ranks"]:
         check(r["device_bytes"] <= MESH_FRACTION_GATE * whole,
               f"mesh n={n}: rank {r['rank']} holds {r['device_bytes']} of {whole} bytes")
-        check(r["launches"]["spmm_fused_packed"] == epochs and r["launches"]["spmm_fused"] == 0,
+        check(r["launches"]["spmm_fused_packed"] == epochs,
               f"mesh n={n}: rank {r['rank']} launches {r['launches']}")
         check(r["audit"] == {"ops": 1 + pcg, "payload_elems": nk + 32 * pcg}
               and r["audit_tol"] == {"ops": 2 + pcg, "payload_elems": nk + 32 * (1 + pcg)},
@@ -1833,8 +1807,7 @@ def mesh_served(card, requests):
           f"served mesh: {served['answered']} answered of {requests}")
     check(served["worst_rel_diff_vs_direct"] <= MESH_RELERR_GATE,
           f"served mesh: off its direct solve by {served['worst_rel_diff_vs_direct']}")
-    check(served["launches_rank0"]["spmm_fused_packed"] >= served["batches"]
-          and served["launches_rank0"]["spmm_fused"] == 0,
+    check(served["launches_rank0"]["spmm_fused_packed"] >= served["batches"],
           f"served mesh: rank 0 launches {served['launches_rank0']}")
     return served
 
@@ -3685,12 +3658,7 @@ def main() -> int:
     from repro_torch.kernels.project import ops as project_ops
     from repro_torch.kernels.project.ref import consensus_update_ref, project_ref
     from repro_torch.kernels.spmm import ops as spmm_ops
-    from repro_torch.kernels.spmm.ref import (
-        spmm_fused_packed_plain,
-        spmm_fused_plain,
-        spmm_packed_plain,
-        spmm_plain,
-    )
+    from repro_torch.kernels.spmm.ref import spmm_fused_packed_plain, spmm_packed_plain, spmm_plain
     from repro_torch.kernels.trisolve import ops as trisolve_ops
     from repro_torch.kernels.trisolve.ref import trisolve_ref
     from repro_torch.configs import get_config, reduced_config
@@ -3744,7 +3712,7 @@ def main() -> int:
           f"matfree n=16384: {mf_big['launches']['spmm']} packed SpMM launches, expected >= 1500")
 
     print("SpMM kernel phase (kernel vs plain version on the card, operators of the runs above):")
-    cases.update(spmm_phase(torch, spmm_ops, spmm_plain, spmm_packed_plain, spmm_fused_plain,
+    cases.update(spmm_phase(torch, spmm_ops, spmm_plain, spmm_packed_plain,
                             spmm_fused_packed_plain, mf_small["prep"].op, mf_big["prep"].op))
 
     print("baselines at the Table 1 width (repro_torch.launch.solve --method dgd|cgnr --device cuda):")
@@ -3769,7 +3737,7 @@ def main() -> int:
           f"gloo) on {card}:")
     mesh = mesh_phase(torch, ops, prepare, mf_small, mf_big, card)
     print("SpMM kernels on the shards of the multi-device runs (kernel vs plain version):")
-    cases.update(spmm_phase(torch, spmm_ops, spmm_plain, spmm_packed_plain, spmm_fused_plain,
+    cases.update(spmm_phase(torch, spmm_ops, spmm_plain, spmm_packed_plain,
                             spmm_fused_packed_plain, None, None, only=mesh["shards"]))
     print(f"model serving (repro_torch.models, serving.decode, launch.serve) on {card}:")
     t0 = time.perf_counter()
@@ -3813,8 +3781,6 @@ def main() -> int:
             out["cases"] = [{"name": e, **cases[e]} for e in extra]
         return out
 
-    staged = {"main_path": False,
-              "note": "the staged interface counterpart; the main path runs spmm_fused_packed"}
     on_session = {"path": f"one warm update of the session phase (update {STREAM_UPDATES // 2})"}
 
     def on_served(path):
@@ -3846,11 +3812,6 @@ def main() -> int:
               mf_small["launches"]["spmm_fused_packed"], "spmm_fused_packed.n2327"),
         entry("spmm_fused_packed.matfree_16384", SPMM_SRC, SPMM_FUSED_TPU,
               mf_big["launches"]["spmm_fused_packed"], "spmm_fused_packed.n16384"),
-        entry("spmm_fused.matfree_2327", SPMM_SRC, SPMM_FUSED_TPU,
-              mf_small["launches"]["spmm_fused"], "spmm_fused.n2327", ["spmm_fused.tile16x8"],
-              **staged),
-        entry("spmm_fused.matfree_16384", SPMM_SRC, SPMM_FUSED_TPU,
-              mf_big["launches"]["spmm_fused"], "spmm_fused.n16384", **staged),
         # one warm session update; the operands have the shapes of the rows
         # whose measured case each row carries
         entry("trisolve.session_dense", TRISOLVE_SRC, TRISOLVE_TPU,

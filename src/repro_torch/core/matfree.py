@@ -627,9 +627,8 @@ class MatrixFreePreparedSolver:
         """Rebuild on ``device`` from ``to_state`` output — this package's or
         the JAX package's (same format, same operator bytes)."""
         dev = resolve_device(device)
-        op = PartitionedBSR.from_arrays(arrays, meta["op"], device=dev,
-                                        packed=_packs(meta["use_kernels"], dev))
-        return cls._restore(op, arrays, meta, dev)
+        op = PartitionedBSR.from_arrays(arrays, meta["op"], device=dev)
+        return cls._restore(op.for_kernels(meta["use_kernels"]), arrays, meta, dev)
 
     @classmethod
     def _restore(cls, op, arrays, meta: dict, dev, blocks=slice(None), **placement):
@@ -655,12 +654,6 @@ class MatrixFreePreparedSolver:
             **spectra_mod.dynamics_state(arrays, meta),
             **placement,
         )
-
-
-def _packs(use_kernels: bool, dev: torch.device) -> bool:
-    """Whether the operator carries the packed forms: on the card, with the
-    kernels (on the CPU the wrappers take the ELL plain versions)."""
-    return bool(use_kernels) and dev.type == "cuda"
 
 
 def _collapse_k(tree):
@@ -704,7 +697,7 @@ def prepare_matfree(
     Gram solution (PCG only). ``use_kernels`` routes every tile product
     through the hand-written SpMM kernels and stores the A_jᵀ shards they
     stream; on the card it also packs every shard stack's nonzeros once
-    (``PartitionedBSR.with_packed``), which every kernel product then
+    (``PartitionedBSR.for_kernels``), which every kernel product then
     streams, the epoch's fused pass included.
 
     ``partition="cost_aware"`` assigns rows to blocks with
@@ -770,8 +763,7 @@ def prepare_matfree(
     whole = op
     if mesh is not None:
         op = op.place(mesh, block_axes, device=dev)
-    if _packs(use_kernels, dev):
-        op = op.with_packed()
+    op = op.for_kernels(use_kernels)
     # relative-epsilon Jacobi clamp: padded rows stay 0, near-zero Gram
     # diagonals are bounded instead of exploding (see jacobi_weights)
     diag_inv = op.jacobi_weights()

@@ -36,7 +36,7 @@ import math
 import torch
 
 from repro_torch.core.collectives import Collectives, mesh_axes_group
-from repro_torch.core.matfree import MatrixFreePreparedSolver, _identity, _packs
+from repro_torch.core.matfree import MatrixFreePreparedSolver, _identity
 from repro_torch.device import resolve_device
 from repro_torch.sparse.bsr import _ARRAY_FIELDS, PartitionedBSR
 
@@ -196,9 +196,7 @@ class ShardedMatrixFreeSolver(MatrixFreePreparedSolver):
         block_axes = tuple(block_axes)
         dev = mesh_device(mesh, device)
         host = PartitionedBSR.from_arrays(arrays, meta["op"], device="cpu")
-        op = host.place(mesh, block_axes, device=dev)
-        if _packs(meta["use_kernels"], dev):
-            op = op.with_packed()
+        op = host.place(mesh, block_axes, device=dev).for_kernels(meta["use_kernels"])
         lo, hi = op.shard[:2]
         return cls._restore(op, arrays, meta, dev, blocks=slice(lo, hi),
                             mesh=mesh, block_axes=block_axes)

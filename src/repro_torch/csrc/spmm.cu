@@ -1,19 +1,17 @@
-// SpMM for the matrix-free path: the packed-nonzero product, the epoch's
-// fused pass on two packed forms, and the staged blocked-ELL fused pass.
+// SpMM for the matrix-free path: the packed-nonzero product and the epoch's
+// fused pass on two packed forms.
 //
 //   spmm_packed:       out[row] = sum_{e in row} val[e] * x[j(row)][col[e]]
 //   spmm_fused_packed: two spmm_packed products in one launch: A_j x over the
 //                      forward shards' packed form and A_j^T y_j over the
 //                      transposed shards' packed form
-//   spmm_fused:        out[j, r] = sum_s data[j, r, s] @ x[j, idx[j, r, s]], plus
-//                      contrib[j, r, s] = data[j, r, s]^T @ y[j, r]
 //
 // Replaces: the Pallas TPU kernels of src/repro/kernels/spmm/spmm.py,
 // `spmm_padded` (body `_spmm_kernel`) and `spmm_fused_padded` (body
 // `_spmm_fused_kernel`). Their grid (J, R, S) walked the slot axis in order
 // on one core, revisiting the output stripe in VMEM, with the tile ids as a
-// scalar-prefetch operand. spmm_fused keeps the second one's staged
-// interface; the matrix-free path runs spmm_fused_packed in its place.
+// scalar-prefetch operand. Both kernels here stream a CSR of the shards'
+// nonzeros instead of the blocked-ELL tiles (kernels/spmm/pack.py).
 //
 // x is the (J, C, bn, k) tile view of the column space, read as (J, C*bn, k)
 // rows of k contiguous values; its j-stride may be 0 (one operand broadcast to
@@ -51,24 +49,23 @@
 //     FMAs, so eight L2 reads are in flight per lane instead of one;
 //   * one writer per output row, fixed order, no atomics: every output is
 //     summed over its row's entries in packed order, one fma per entry from
-//     zero, whatever V and L are. For finite inputs this gives exactly the
-//     bits of the ELL kernel below, which adds the same products in the same
-//     order plus exact zeros (0 * x added to a sum changes nothing). A NaN or
-//     Inf in x that only a zero coefficient touches no longer propagates (the
-//     ELL sum forms 0 * Inf). A row with no entries writes zeros.
+//     zero, whatever V and L are. For finite inputs this is the blocked-ELL
+//     product's sum (ref.spmm_plain adds the same products in the same order
+//     plus exact zeros; 0 * x added to a sum changes nothing). A NaN or Inf
+//     in x that only a zero coefficient touches does not propagate (the ELL
+//     sum forms 0 * Inf). A row with no entries writes zeros.
 //
 // ---- spmm_fused_packed -----------------------------------------------------
 // The matrix-free epoch's fused pass (PartitionedBSR.fused_project): A_j x
 // and A_j^T y_j from one launch, with no staged contributions and no scatter.
 // On that path it replaces `spmm_fused_padded` together with its caller's
 // scatter-add of the staged contributions (`_scatter_contrib` in
-// `fused_project`, src/repro/sparse/bsr.py:324 and :711), which the staged
-// spmm_fused below and the port's own `_scatter_contrib` still mirror. The
-// TPU kernel read each tile once for both products because a tile in VMEM
-// fed both contractions; here a tile holds one to three nonzeros of its 64
-// entries, so the transpose is a second packed product over the CSC of the
-// same nonzeros (the transposed shards' packed form) with one writer per
-// output row. Nothing per slot is written (375 MB per epoch at n = 16384 in
+// `fused_project`, src/repro/sparse/bsr.py:324 and :711), which the port's
+// plain version still mirrors. The TPU kernel read each tile once for both
+// products because a tile in VMEM fed both contractions; here a tile holds
+// one to three nonzeros of its 64 entries, so the transpose is a second
+// packed product over the CSC of the same nonzeros (the transposed shards'
+// packed form) with one writer per output row. Nothing per slot is written (375 MB per epoch at n = 16384 in
 // the staged form), nothing is read back, and no atomic reorders a sum, so
 // every launch gives the same bits.
 //
@@ -88,41 +85,12 @@
 // pointer reads and its 128-byte store dominate, not its FMAs. Tensor cores
 // do not fit, as for spmm_packed: one to three nonzeros per 8x8 tile.
 //
-// ---- spmm_fused ------------------------------------------------------------
-// The staged interface of `spmm_fused_padded`, held against its plain
-// version; the matrix-free path runs spmm_fused_packed in its place.
-//
-// What bounds it on an H100: bytes. A tile of (8, 8) float32 is 256 B and
-// feeds 2 * 8 * 8 * k FLOPs per product, so at k = 32 the tiles alone need
-// 16 FLOP/B against the card's 20 FLOP/B f32 balance point (67 TFLOP/s over
-// 3.35 TB/s), and the gathered x rows (bn * k values per slot, read through
-// L2) and the staged contrib (as large as the gathered x) push it further to
-// the memory side.
-//
-// Design:
-//   * one thread block per (j, r, 32-column k-tile): the slot loop runs inside
-//     the block, which reads its own tile ids (no scalar prefetch here);
-//   * the reduction over (slot, tile column) pairs is flattened and walked in
-//     chunks of 32: each chunk stages its data (transposed, rows padded to
-//     bp + 1 against bank conflicts) and the 32 gathered x rows in shared
-//     memory; x keeps its (C, bn, k) layout, k contiguous, so each gathered
-//     row is one coalesced read by a warp;
-//   * 8 warps split the bp output rows, lanes the k columns; each thread
-//     accumulates its (<= 16 rows, 1 column) stripe in registers and writes
-//     it once, so every output has one writer and a fixed order of sums
-//     (no atomics);
-//   * y[j, r] is loaded once before the slot loop and, from the data chunk
-//     already in shared memory, each slot's contribution is written once to
-//     its own staging slot (no atomics; the caller scatter-adds);
-//   * tiles take any (bp, bn) with each side at most 128.
 // No library call computes any product here (no cuBLAS, no cuSPARSE).
 #include <cstdint>
 
 #include "common.cuh"
 
 namespace {
-
-// ---- spmm_packed and spmm_fused_packed ---------------------------------------
 
 constexpr int PK_THREADS = 256;  // 8 warps
 constexpr int UNR = 8;           // gathers in flight per lane
@@ -347,133 +315,6 @@ int launch_fused_packed(const PackedRange<T>& tra, const PackedRange<T>& fwd, in
                      [&](int v) { return aligned(tra, k, v) && aligned(fwd, k, v); });
 }
 
-// ---- spmm_fused (blocked ELL) ------------------------------------------------
-
-constexpr int KT = 32;             // k-tile: one column per lane
-constexpr int NY = 8;              // warps per block, splitting the bp rows
-constexpr int CH = 32;             // flattened (slot, tile column) chunk
-constexpr int THREADS = KT * NY;
-constexpr int MAX_TILE = 128;      // largest bp or bn taken
-
-// Dynamic shared memory, in units of T:
-//   ws[CH][bp + 1]  data chunk, transposed: ws[e][p] = data[s(e)][p][b(e)]
-//   xs[CH][KT]      gathered x rows:       xs[e][c] = x[idx[s(e)]][b(e)][c]
-//   ys[bp][KT]      the y[j, r] stripe
-template <typename T, int RPT>
-__global__ void __launch_bounds__(THREADS) spmm_fused_kernel(
-    const int* __restrict__ idx, const T* __restrict__ data, const T* __restrict__ x,
-    long long x_jstride, const T* __restrict__ y, T* __restrict__ out,
-    T* __restrict__ contrib, int R, int S, int bp, int bn, int k) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* ws = reinterpret_cast<T*>(smem_raw);
-  const int wstride = bp + 1;
-  T* xs = ws + CH * wstride;
-  T* ys = xs + CH * KT;
-
-  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * KT + tx;
-  const int r = blockIdx.x, kt0 = blockIdx.y * KT, j = blockIdx.z;
-  const int kw = min(KT, k - kt0);  // live columns of this k-tile
-  const size_t jr = (size_t)j * R + r;
-  const int* idx_jr = idx + jr * S;
-  const T* data_jr = data + jr * S * bp * bn;
-  const T* xj = x + (long long)j * x_jstride;
-
-  const T* y_jr = y + jr * bp * k;
-  for (int t = tid; t < bp * KT; t += THREADS) {
-    const int p = t / KT, cc = t % KT;
-    ys[t] = cc < kw ? y_jr[(size_t)p * k + kt0 + cc] : T(0);
-  }
-
-  T acc[RPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) acc[i] = T(0);
-
-  const int total = S * bn;  // flattened reduction length: g = s * bn + b
-  for (int e0 = 0; e0 < total; e0 += CH) {
-    const int n_e = min(CH, total - e0);
-    __syncthreads();  // the previous chunk is consumed (and ys is loaded)
-    for (int t = tid; t < CH * bp; t += THREADS) {
-      const int p = t / CH, e = t % CH;
-      T v = T(0);
-      if (e < n_e) {
-        const int g = e0 + e, s = g / bn, b = g - s * bn;
-        v = data_jr[((size_t)s * bp + p) * bn + b];
-      }
-      ws[e * wstride + p] = v;
-    }
-    for (int t = tid; t < CH * KT; t += THREADS) {
-      const int e = t / KT, cc = t % KT;
-      T v = T(0);
-      if (e < n_e && cc < kw) {
-        const int g = e0 + e, s = g / bn, b = g - s * bn;
-        const int cb = __ldg(idx_jr + s);
-        v = xj[((size_t)cb * bn + b) * k + kt0 + cc];
-      }
-      xs[t] = v;
-    }
-    __syncthreads();
-
-    for (int e = 0; e < n_e; ++e) {
-      const T xv = xs[e * KT + tx];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const int p = ty + NY * i;
-        if (p < bp) acc[i] += ws[e * wstride + p] * xv;
-      }
-    }
-
-    // contrib[s][b][c] = sum_p data[s][p][b] * y[p][c]: chunk element e is
-    // (s, b), and its contribution row starts at (jr * S * bn + e0 + e) * k
-    for (int e = ty; e < n_e; e += NY) {
-      T sum = T(0);
-      for (int p = 0; p < bp; ++p) sum += ws[e * wstride + p] * ys[p * KT + tx];
-      if (tx < kw) contrib[(jr * S * bn + e0 + e) * k + kt0 + tx] = sum;
-    }
-  }
-
-  if (tx < kw) {
-    T* out_jr = out + jr * bp * k;
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int p = ty + NY * i;
-      if (p < bp) out_jr[(size_t)p * k + kt0 + tx] = acc[i];
-    }
-  }
-}
-
-template <typename T, int RPT>
-int launch_fused_rpt(const int* idx, const void* data, const void* x, long long x_jstride,
-                     const void* y, void* out, void* contrib, int J, int R, int S, int bp,
-                     int bn, int k, cudaStream_t stream) {
-  const size_t smem = (size_t)(CH * (bp + 1) + CH * KT + bp * KT) * sizeof(T);
-  auto kernel = spmm_fused_kernel<T, RPT>;
-  if (smem > 48 * 1024) {  // once, to the most any tile up to MAX_TILE needs
-    static unsigned devices_done = 0;
-    const size_t most = (size_t)(CH * (MAX_TILE + 1) + CH * KT + MAX_TILE * KT) * sizeof(T);
-    const cudaError_t e = smem_limit_once(kernel, (int)most, devices_done);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const dim3 grid(R, (k + KT - 1) / KT, J), block(KT, NY);
-  kernel<<<grid, block, smem, stream>>>(
-      idx, static_cast<const T*>(data), static_cast<const T*>(x), x_jstride,
-      static_cast<const T*>(y), static_cast<T*>(out), static_cast<T*>(contrib), R, S, bp, bn, k);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_fused(const int* idx, const void* data, const void* x, long long x_jstride,
-                 const void* y, void* out, void* contrib, int J, int R, int S, int bp, int bn,
-                 int k, cudaStream_t s) {
-  if (bp < 1 || bn < 1 || bp > MAX_TILE || bn > MAX_TILE || S < 1 || k < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int rows = (bp + NY - 1) / NY;  // rows per thread, rounded up to 2^i
-  if (rows <= 1) return launch_fused_rpt<T, 1>(idx, data, x, x_jstride, y, out, contrib, J, R, S, bp, bn, k, s);
-  if (rows <= 2) return launch_fused_rpt<T, 2>(idx, data, x, x_jstride, y, out, contrib, J, R, S, bp, bn, k, s);
-  if (rows <= 4) return launch_fused_rpt<T, 4>(idx, data, x, x_jstride, y, out, contrib, J, R, S, bp, bn, k, s);
-  if (rows <= 8) return launch_fused_rpt<T, 8>(idx, data, x, x_jstride, y, out, contrib, J, R, S, bp, bn, k, s);
-  return launch_fused_rpt<T, 16>(idx, data, x, x_jstride, y, out, contrib, J, R, S, bp, bn, k, s);
-}
-
 }  // namespace
 
 // All launch on `stream` and return cudaGetLastError() (0 = launched).
@@ -523,21 +364,5 @@ extern "C" int spmm_fused_packed_launch(
                                fwd_block_rows),
           k, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-extern "C" int spmm_fused_launch(const void* idx, const void* data, const void* x,
-                                 long long x_jstride, const void* y, void* out, void* contrib,
-                                 int J, int R, int S, int bp, int bn, int k, int dtype,
-                                 void* stream) {
-  const int* ip = static_cast<const int*>(idx);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case DT_F32:
-      return launch_fused<float>(ip, data, x, x_jstride, y, out, contrib, J, R, S, bp, bn, k, s);
-    case DT_F64:
-      return launch_fused<double>(ip, data, x, x_jstride, y, out, contrib, J, R, S, bp, bn, k, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -2,8 +2,8 @@
 oracles for the tests.
 
 ``spmm_plain`` and ``spmm_fused_plain`` have the ELL interfaces and outputs
-(gather + einsum, in the data dtype); the CPU path of the wrappers and the
-matrix-free solver's ``use_kernels=False`` products run them.
+(gather + einsum, in the data dtype): the matrix-free operator's plain
+route runs them (without kernels, or on the CPU without packed forms).
 ``spmm_packed_plain`` is the packed kernel's plain version (a segment sum over
 the packed entries), which ``spmm_packed`` takes on a CPU tensor, and
 ``spmm_fused_packed_plain`` the fused packed kernel's: the same on the forward

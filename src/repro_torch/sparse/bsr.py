@@ -12,13 +12,15 @@ module keeps the matrix blocked-sparse on the device:
   * ``PartitionedBSR`` — the J-way row partition of a ``COOMatrix`` as
     stacked blocked-ELL shards for A_j and A_jᵀ, with the SpMM/SpMV
     products the matrix-free solver builds its projections from
-    (``repro_torch.core.matfree``): the hand-written CUDA kernels under
-    ``use_kernels=True`` (``repro_torch.kernels.spmm``), gather + einsum +
-    ``index_add_`` otherwise. ``with_packed`` adds the packed-nonzero form
-    of every stored shard (a CSR of its nonzeros, derived, never saved),
-    which the kernel path's products stream instead of the tiles: the
-    transposed shards' form is the CSC of A_j's nonzeros, so the epoch's
-    fused pass needs no staged contributions and no scatter. ``place``
+    (``repro_torch.core.matfree``). Each product takes one of two routes:
+    the plain ELL version (gather + einsum + ``index_add_``), or, under
+    ``use_kernels=True`` on an operator that carries its packed forms, the
+    hand-written kernel on those forms (``repro_torch.kernels.spmm``).
+    ``with_packed`` adds the packed-nonzero form of every stored shard (a
+    CSR of its nonzeros, derived, never saved): the transposed shards' form
+    is the CSC of A_j's nonzeros, so the epoch's fused pass needs no staged
+    contributions and no scatter. ``for_kernels`` is the one place that
+    decides whether an operator carries them. ``place``
     keeps one rank's contiguous group of blocks of a host-built operator
     (the sharded solver's placement, ``repro_torch.core.matfree_sharded``).
 
@@ -270,14 +272,28 @@ def _scatter_contrib(indices, contrib, num_col_blocks):
     return out.reshape(J, C * bn, k)
 
 
+def _packed_route(use_kernels: bool, device: torch.device, *forms) -> bool:
+    """Whether a product takes the packed kernel on ``forms`` (True) or the
+    plain ELL version (False). Kernels without the packed forms take the
+    plain version on the CPU and raise anywhere else."""
+    if not use_kernels:
+        return False
+    if all(f is not None for f in forms):
+        return True
+    if device.type == "cpu":
+        return False
+    raise ValueError(
+        f"kernel products on {device} run on the packed forms: build them with "
+        "PartitionedBSR.with_packed() (for_kernels(True) on the card)"
+    )
+
+
 def _spmm(indices, data, packed, xb, use_kernels: bool) -> torch.Tensor:
     """(J, R*bp, k) product of one shard stack: the packed kernel on its
-    packed form, or (no packed form) the ELL wrapper, or the plain one."""
-    if not use_kernels:
-        return spmm_plain(indices, data, xb)
-    if packed is None:
-        return spmm_ops.spmm(indices, data, xb)
-    return spmm_ops.spmm_packed(packed, xb)
+    packed form, or the plain ELL version."""
+    if _packed_route(use_kernels, data.device, packed):
+        return spmm_ops.spmm_packed(packed, xb)
+    return spmm_plain(indices, data, xb)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -381,9 +397,8 @@ class PartitionedBSR:
     ``fwd_*`` holds the A_j shards ((J, Rp, S) tiles of (bp, bn)) — the only
     mandatory representation: ``rmatvec`` scatter-adds transposed tile
     products straight from it. ``with_transpose=True`` additionally stores
-    the A_jᵀ shards (``tra_*``, (J, Rn, T) tiles of (bn, bp)), which the
-    kernel path's ``rmatvec`` and ``fused_project`` stream through the SpMM
-    kernels.
+    the A_jᵀ shards (``tra_*``, (J, Rn, T) tiles of (bn, bp)), whose packed
+    form the kernel path's ``rmatvec`` and ``fused_project`` stream.
     ``with_gram=True`` stores the Gram operators G_j = A_j A_jᵀ as (p, p)
     blocked-ELL shards (``gram_*``), the inner-CG operator.
 
@@ -394,9 +409,9 @@ class PartitionedBSR:
 
     ``fwd_packed``/``tra_packed``/``gram_packed`` are the packed-nonzero
     forms of the stored shards (``with_packed``): derived, not state, so
-    ``to_arrays`` leaves them out and ``from_arrays(packed=True)`` rebuilds
-    them. The matrix-free solver builds them on the card when it runs with
-    kernels; ``nbytes`` counts them.
+    ``to_arrays`` leaves them out. ``for_kernels`` builds them where the
+    kernels run (the matrix-free solver calls it on every operator it
+    prepares or restores); ``nbytes`` counts them.
 
     ``shard = (start, stop, J)`` marks a placed operator (``place``): it
     holds blocks [start, stop) of a J-block operator, while ``shape``, ``p``
@@ -598,6 +613,15 @@ class PartitionedBSR:
             gram_packed=packed(self.gram_indices, self.gram_data),
         )
 
+    def for_kernels(self, use_kernels: bool) -> "PartitionedBSR":
+        """The operator a solver with ``use_kernels`` runs on: with kernels on
+        a CUDA device, this one plus its packed forms (``with_packed``), which
+        every kernel product there streams; otherwise this one (on the CPU the
+        kernel path's products take the plain ELL versions)."""
+        if use_kernels and self.device.type == "cuda":
+            return self.with_packed()
+        return self
+
     # -- mesh placement ------------------------------------------------------
 
     def shard_spec(self, mesh, axes: tuple[str, ...]) -> dict:
@@ -628,8 +652,8 @@ class PartitionedBSR:
         moved to ``device`` (``None``: the mesh's device on this rank).
 
         Build the operator in host memory and place it: only this rank's
-        blocks reach the card. Packed forms, when the source has them, are
-        rebuilt for the shard on the device.
+        blocks reach the card. The placed operator carries no packed forms
+        (``for_kernels`` derives the shard's own).
         """
         from repro_torch.core.collectives import mesh_axes_group
         from repro_torch.core.matfree_sharded import mesh_device
@@ -641,11 +665,10 @@ class PartitionedBSR:
             name: getattr(self, name)[start:stop].to(dev)
             for name in spec
         }
-        placed = dataclasses.replace(
+        return dataclasses.replace(
             self, **kept, fwd_packed=None, tra_packed=None, gram_packed=None,
             shard=(start, stop, self.global_blocks),
         )
-        return placed.with_packed() if self.fwd_packed is not None else placed
 
     # -- balanced-layout translation -----------------------------------------
 
@@ -715,20 +738,18 @@ class PartitionedBSR:
         (J, n, k). With kernels and both packed forms stored (the solver's
         path on the card), one ``spmm_fused_packed`` launch computes both, the
         transpose over the transposed shards' packed form with one writer per
-        output row. Otherwise one pass over the forward ELL tiles feeds both
-        contractions (the staged ``spmm_fused`` kernel under ``use_kernels``,
-        the plain version without): the per-slot transpose contributions are
-        staged and scatter-added here (``index_add_``).
+        output row. Otherwise one plain pass over the forward ELL tiles feeds
+        both contractions: the per-slot transpose contributions are staged and
+        scatter-added here (``index_add_``).
         """
         J, n = self.num_blocks, self.shape[1]
         bp, bn = self.block_shape
         xb = self._col_tiles(x)
         yb = self._to_internal(y).reshape(J, self.p_pad // bp, bp, -1)
-        if use_kernels and self.fwd_packed is not None and self.tra_packed is not None:
+        if _packed_route(use_kernels, self.device, self.fwd_packed, self.tra_packed):
             fwd, tra = spmm_ops.spmm_fused_packed(self.fwd_packed, self.tra_packed, xb, yb)
         else:
-            fused = spmm_ops.spmm_fused if use_kernels else spmm_fused_plain
-            fwd, contrib = fused(self.fwd_indices, self.fwd_data, xb, yb)
+            fwd, contrib = spmm_fused_plain(self.fwd_indices, self.fwd_data, xb, yb)
             tra = _scatter_contrib(self.fwd_indices, contrib, _ceil_div(n, bn))
         return self._to_external(fwd), tra[:, :n]
 
@@ -785,23 +806,20 @@ class PartitionedBSR:
         return arrays, meta
 
     @classmethod
-    def from_arrays(cls, arrays, meta: dict, prefix: str = "op_", device=None,
-                    packed: bool = False):
+    def from_arrays(cls, arrays, meta: dict, prefix: str = "op_", device=None):
         """Rebuild on ``device`` from ``to_arrays`` output — this package's
-        or the JAX package's (extra keys in ``arrays`` are ignored);
-        ``packed`` rebuilds the packed forms too (``with_packed``)."""
+        or the JAX package's (extra keys in ``arrays`` are ignored)."""
         dev = resolve_device(device)
         kwargs = {
             name: _tensor(np.asarray(arrays[prefix + name]), dev)
             for name in _ARRAY_FIELDS
             if prefix + name in arrays
         }
-        op = cls(
+        return cls(
             shape=tuple(meta["shape"]), p=int(meta["p"]),
             p_pad=int(meta["p_pad"]),
             planned=bool(meta.get("planned", False)), **kwargs,
         )
-        return op.with_packed() if packed else op
 
     def block_rhs(self, b: np.ndarray) -> torch.Tensor:
         """RHS (m,) or (m, k) -> (J, p_pad, k) on the device, zero-padded

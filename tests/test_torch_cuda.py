@@ -4,6 +4,8 @@ machine with an H100 with ``python -m pytest -m gpu tests/test_torch_cuda.py``.
 
 This file imports no jax: the machine with the card has none.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -12,12 +14,7 @@ from repro_torch.kernels.project import ops as project_ops
 from repro_torch.kernels.project.ref import consensus_update_ref, project_ref
 from repro_torch.kernels.spmm import ops as spmm_ops
 from repro_torch.kernels.spmm.pack import pack
-from repro_torch.kernels.spmm.ref import (
-    spmm_fused_packed_plain,
-    spmm_fused_plain,
-    spmm_packed_plain,
-    spmm_plain,
-)
+from repro_torch.kernels.spmm.ref import spmm_fused_packed_plain, spmm_packed_plain, spmm_plain
 from repro_torch.kernels.trisolve import ops as trisolve_ops
 from repro_torch.kernels.trisolve.ref import trisolve_ref
 from repro_torch.sparse import PartitionedBSR, generate_schenk_like
@@ -328,17 +325,15 @@ def test_consensus_update_graph_replay(cuda, J, p, n, k):
 
 
 def _ell_operands(bshape, k, seed, dtype=torch.float32, n=200, J=3):
-    """Forward shards of a Schenk-like matrix, x as the (J, C, bn, k) tile
-    view and y (J, R, bp, k), on the CPU in ``dtype``."""
+    """Forward shards of a Schenk-like matrix and x as the (J, C, bn, k) tile
+    view, on the CPU in ``dtype``."""
     coo = generate_schenk_like(n, sparsity=0.95, seed=seed)
     op = PartitionedBSR.from_coo(coo, J, bshape, dtype=np.dtype(str(dtype).split(".")[1]),
                                  device="cpu")
     rng = np.random.default_rng(seed)
     x = torch.as_tensor(rng.standard_normal((J, n, k)), dtype=dtype)
     xb = _pad_cols(x, n, bshape[1]).contiguous()
-    R = op.fwd_indices.shape[1]
-    y = torch.as_tensor(rng.standard_normal((J, R, bshape[0], k)), dtype=dtype)
-    return op.fwd_indices, op.fwd_data, xb, y
+    return op.fwd_indices, op.fwd_data, xb
 
 
 def _spmm_close(got, want, rtol):
@@ -354,50 +349,41 @@ SPMM_TILES = [(8, 8), (4, 16), (8, 128), (16, 8), (128, 128), (3, 5)]
 @pytest.mark.parametrize("bshape", SPMM_TILES)
 @pytest.mark.parametrize("k", [1, 32, 37])
 def test_spmm_f32(cuda, bshape, k):
-    idx, data, xb, y = _ell_operands(bshape, k, seed=k + bshape[0])
-    dev = [t.to(cuda) for t in (idx, data, xb, y)]
-    _spmm_close(spmm_ops.spmm(*dev[:3]).cpu(), spmm_plain(idx, data, xb), 1e-4)
-    fwd, contrib = spmm_ops.spmm_fused(*dev)
-    want_fwd, want_contrib = spmm_fused_plain(idx, data, xb, y)
-    _spmm_close(fwd.cpu(), want_fwd, 1e-4)
-    _spmm_close(contrib.cpu(), want_contrib, 1e-4)
+    idx, data, xb = _ell_operands(bshape, k, seed=k + bshape[0])
+    packed = pack(idx.to(cuda), data.to(cuda))
+    _spmm_close(spmm_ops.spmm_packed(packed, xb.to(cuda)).cpu(), spmm_plain(idx, data, xb), 1e-4)
 
 
 @pytest.mark.parametrize("bshape", [(8, 8), (128, 128)])
 def test_spmm_f64(cuda, bshape):
-    idx, data, xb, y = _ell_operands(bshape, 5, seed=3, dtype=torch.float64)
-    dev = [t.to(cuda) for t in (idx, data, xb, y)]
-    out = spmm_ops.spmm(*dev[:3])
+    idx, data, xb = _ell_operands(bshape, 5, seed=3, dtype=torch.float64)
+    out = spmm_ops.spmm_packed(pack(idx.to(cuda), data.to(cuda)), xb.to(cuda))
     assert out.dtype == torch.float64
     _spmm_close(out.cpu(), spmm_plain(idx, data, xb), 1e-12)
-    fwd, contrib = spmm_ops.spmm_fused(*dev)
-    want_fwd, want_contrib = spmm_fused_plain(idx, data, xb, y)
-    _spmm_close(fwd.cpu(), want_fwd, 1e-12)
-    _spmm_close(contrib.cpu(), want_contrib, 1e-12)
 
 
 def test_spmm_broadcast_x_and_checks(cuda):
-    idx, data, xb, y = (t.to(cuda) for t in _ell_operands((8, 8), 4, seed=1))
-    wide = xb[:1].expand_as(xb)  # one operand for every block, stride 0
-    torch.testing.assert_close(spmm_ops.spmm(idx, data, wide),
-                               spmm_ops.spmm(idx, data, wide.contiguous()), atol=0, rtol=0)
+    idx, data, xb = _ell_operands((8, 8), 4, seed=1)
+    packed, xd = pack(idx.to(cuda), data.to(cuda)), xb.to(cuda)
+    wide = xd[:1].expand_as(xd)  # one operand for every block, stride 0
+    torch.testing.assert_close(spmm_ops.spmm_packed(packed, wide),
+                               spmm_ops.spmm_packed(packed, wide.contiguous()), atol=0, rtol=0)
     before = dict(spmm_ops.launches)
-    spmm_ops.spmm(idx, data, xb)
-    spmm_ops.spmm_fused(idx, data, xb, y)
-    assert spmm_ops.launches == {"spmm": before["spmm"] + 1, "spmm_fused": before["spmm_fused"] + 1,
-                                 "spmm_fused_packed": before["spmm_fused_packed"]}
-    spmm_ops.spmm(idx.cpu(), data.cpu(), xb.cpu())  # the CPU path launches nothing
+    spmm_ops.spmm_packed(packed, xd)
+    assert spmm_ops.launches == {**before, "spmm": before["spmm"] + 1}
+    spmm_ops.spmm_packed(pack(idx, data), xb)  # the CPU path launches nothing
     assert spmm_ops.launches["spmm"] == before["spmm"] + 1
-    with pytest.raises(TypeError, match="int32"):
-        spmm_ops.spmm(idx.long(), data, xb)
+    with pytest.raises(TypeError, match="not supported"):
+        spmm_ops.spmm_packed(dataclasses.replace(packed, val=packed.val.half()), xd.half())
     with pytest.raises(TypeError):
-        spmm_ops.spmm(idx, data.half(), xb.half())
-    with pytest.raises(TypeError):
-        spmm_ops.spmm(idx, data, xb.double())
+        spmm_ops.spmm_packed(packed, xd.double())
     with pytest.raises(ValueError, match="contiguous"):
-        spmm_ops.spmm(idx, data.transpose(-1, -2).contiguous().transpose(-1, -2), xb)
+        spmm_ops.spmm_packed(packed, xd.transpose(2, 3).contiguous().transpose(2, 3))
+    strided = torch.stack([packed.val, packed.val], 1)[:, 0]  # every other element
+    with pytest.raises(ValueError, match="contiguous"):
+        spmm_ops.spmm_packed(dataclasses.replace(packed, val=strided), xd)
     with pytest.raises(ValueError, match="expected"):
-        spmm_ops.spmm(idx, data, xb.cpu())
+        spmm_ops.spmm_packed(packed, xd.cpu())
 
 
 def _shards(bshape, dtype, n=200, J=3, seed=0):
@@ -415,8 +401,7 @@ def _shards(bshape, dtype, n=200, J=3, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_spmm_packed_on_all_shards(cuda, bshape, k, dtype):
     """The packed kernel against its plain versions, bit-identical across two
-    launches and, on finite inputs, to the ELL fused kernel's forward output
-    (the same products added in the same order)."""
+    launches."""
     _, shards = _shards(bshape, dtype, seed=k)
     rng = np.random.default_rng(k)
     rtol = 1e-4 if dtype == torch.float32 else 1e-12
@@ -424,15 +409,12 @@ def test_spmm_packed_on_all_shards(cuda, bshape, k, dtype):
         J, R, S, bp, bn = data.shape
         C = int(idx.max()) + 1
         xb = torch.as_tensor(rng.standard_normal((J, C, bn, k)), dtype=dtype)
-        y = torch.as_tensor(rng.standard_normal((J, R, bp, k)), dtype=dtype)
         packed = pack(idx.to(cuda), data.to(cuda))
         got = spmm_ops.spmm_packed(packed, xb.to(cuda))
         assert got.dtype == dtype and got.shape == (J, R * bp, k), name
         _spmm_close(got.cpu(), spmm_plain(idx, data, xb), rtol)
         _spmm_close(got.cpu(), spmm_packed_plain(pack(idx, data), xb), rtol)
         assert torch.equal(spmm_ops.spmm_packed(packed, xb.to(cuda)), got), name
-        ell, _ = spmm_ops.spmm_fused(idx.to(cuda), data.to(cuda), xb.to(cuda), y.to(cuda))
-        assert torch.equal(got, ell), name
 
 
 def test_spmm_packed_broadcast_empty_and_explicit_zeros(cuda):
@@ -473,9 +455,8 @@ def test_matfree_kernels_match_plain_on_card(cuda, gram_solver):
                        use_kernels=kernels, gamma=2.0, eta=1.9, device=cuda)
         res[kernels] = prep.solve(B, num_epochs=40)
         launched = {key: spmm_ops.launches[key] - before[key] for key in before}
-        if kernels:  # one fused packed pass per epoch; the staged ELL kernel is off the path
+        if kernels:  # one fused packed pass per epoch
             assert launched["spmm"] > 0 and launched["spmm_fused_packed"] == 40, launched
-            assert launched["spmm_fused"] == 0, launched
         else:
             assert not any(launched.values()), launched
         # the kernel path carries the packed forms, and a restore rebuilds them
@@ -510,7 +491,7 @@ def _fused_operands(bshape, k, dtype, cuda, n=200, J=3, seed=0):
 def test_spmm_fused_packed_on_card(cuda, bshape, k, dtype):
     """The fused packed kernel against its plain version on the forward and
     transposed shards, bit-identical to the two spmm_packed launches; the
-    operator's fused_project launches it (and nothing staged)."""
+    operator's fused_project launches it."""
     op, fwd, tra, x, xb, yb = _fused_operands(bshape, k, dtype, cuda, seed=k)
     wide = xb[:1].to(cuda).expand_as(xb)  # x broadcast over the blocks, as the solver passes it
     got_f, got_t = spmm_ops.spmm_fused_packed(fwd, tra, wide, yb.to(cuda))
@@ -530,7 +511,6 @@ def test_spmm_fused_packed_on_card(cuda, bshape, k, dtype):
     before = dict(spmm_ops.launches)
     f, g = dev_op.fused_project(x.to(cuda), yb.reshape(3, -1, k).to(cuda), use_kernels=True)
     assert spmm_ops.launches["spmm_fused_packed"] == before["spmm_fused_packed"] + 1
-    assert spmm_ops.launches["spmm_fused"] == before["spmm_fused"]
     assert torch.equal(f, dev_op.matvec(x.to(cuda), use_kernels=True))
     assert torch.equal(g, dev_op.rmatvec(yb.reshape(3, -1, k).to(cuda), use_kernels=True))
 
@@ -640,7 +620,6 @@ def test_matfree_session_kernels_match_plain_on_card(cuda):
     before = dict(spmm_ops.launches)
     _session_on_and_off(prep, prob.A, 200, dense=False)
     assert spmm_ops.launches["spmm_fused_packed"] - before["spmm_fused_packed"] == 6 * 200
-    assert spmm_ops.launches["spmm_fused"] == before["spmm_fused"]
 
 
 @pytest.mark.parametrize("method", ["dgd", "cgnr"])
@@ -676,7 +655,7 @@ def test_served_poisson_replay_through_the_kernels(cuda, path):
     solve gate of a direct solve of the same columns at the served width
     and within one epoch of it; the served batches launch the path's hand
     kernels (one trisolve and one consensus update per epoch dense, one
-    fused packed pass per epoch and no staged pass matrix-free). A dense
+    fused packed pass per epoch matrix-free). A dense
     batch stops once every column has frozen: its updates are the epochs
     the solver's counter says it ran, fewer than the cap."""
     import asyncio
@@ -732,7 +711,6 @@ def test_served_poisson_replay_through_the_kernels(cuda, path):
         assert launches["project"] == launches["epochs"] < cap * nb, launches
     else:
         assert launches["spmm_fused_packed"] == cap * nb and launches["spmm"] >= nb, launches
-        assert launches["spmm_fused"] == 0, launches
 
 
 @pytest.mark.parametrize("arch", ["granite-3-2b", "granite-3-8b", "gemma-7b", "qwen1.5-32b"])

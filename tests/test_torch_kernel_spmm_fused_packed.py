@@ -23,6 +23,7 @@ from repro_torch.core.matfree import MatrixFreePreparedSolver
 from repro_torch.kernels.spmm import ops
 from repro_torch.kernels.spmm.ref import spmm_fused_packed_plain, spmm_packed_plain
 from repro_torch.sparse import PartitionedBSR, generate_schenk_like
+from repro_torch.sparse import bsr as tbsr
 from repro_torch.sparse.matrix import COOMatrix
 
 N, J = 123, 4  # n % bn != 0: the transpose has padded rows
@@ -61,7 +62,8 @@ def _tiles(op, x, y):
 
 @pytest.fixture
 def staged_off(monkeypatch):
-    """Counts calls of the plain version; the staged ELL wrapper raises."""
+    """Counts calls of the packed plain version; the ELL plain pass that
+    ``fused_project`` takes without packed forms raises."""
     calls = []
 
     def plain(*args):
@@ -72,7 +74,7 @@ def staged_off(monkeypatch):
         raise AssertionError("the staged ELL pass ran on an operator with packed forms")
 
     monkeypatch.setattr(ops, "spmm_fused_packed_plain", plain)
-    monkeypatch.setattr(ops, "spmm_fused", staged)
+    monkeypatch.setattr(tbsr, "spmm_fused_plain", staged)
     return calls
 
 

@@ -171,8 +171,9 @@ def test_explicit_zeros_are_dropped():
 @pytest.mark.parametrize("plan", PLANS)
 def test_operator_packed_forms(plan):
     """``with_packed`` builds all three forms, ``nbytes`` counts them,
-    ``from_arrays(packed=True)`` rebuilds them and ``to_arrays`` is the
-    reference's format, unchanged."""
+    ``to_arrays`` leaves them out (the reference's format, unchanged), an
+    operator restored from the arrays derives the same forms again, and
+    ``for_kernels`` leaves an operator off the card as it is."""
     ref, port = _operators(plan, (8, 8))
     packed = port.with_packed()
     forms = [getattr(packed, f"{kind}_packed") for kind in KINDS]
@@ -183,13 +184,16 @@ def test_operator_packed_forms(plan):
     assert pm == rm and sorted(pa) == sorted(ra)
     for key in ra:
         np.testing.assert_array_equal(pa[key], np.asarray(ra[key]), err_msg=key)
-    again = PartitionedBSR.from_arrays(pa, pm, device="cpu", packed=True)
+    restored = PartitionedBSR.from_arrays(pa, pm, device="cpu")
+    assert restored.fwd_packed is None and restored.nbytes == port.nbytes
+    for use_kernels in (False, True):  # on the CPU the kernel path keeps the ELL plain products
+        assert restored.for_kernels(use_kernels) is restored
+    again = restored.with_packed()
     assert again.nbytes == packed.nbytes
     for kind in KINDS:
         a, b = getattr(again, f"{kind}_packed"), getattr(packed, f"{kind}_packed")
         for field in ("row_ptr", "col", "val"):
             torch.testing.assert_close(getattr(a, field), getattr(b, field), atol=0, rtol=0)
-    assert PartitionedBSR.from_arrays(pa, pm, device="cpu").fwd_packed is None
     # the kernel path's products run on the packed forms: same numbers
     rng = np.random.default_rng(3)
     x = torch.as_tensor(rng.standard_normal((120, 3)), dtype=torch.float32)
@@ -201,6 +205,33 @@ def test_operator_packed_forms(plan):
     ):
         _close(got, want, 1e-6)
     _close(packed.matvec(x, use_kernels=True), ref.matvec(jnp.asarray(x.numpy())), 1e-4)
+
+
+PRODUCTS = {
+    "matvec": lambda op, x, y, on: op.matvec(x, use_kernels=on),
+    "rmatvec": lambda op, x, y, on: op.rmatvec(y, use_kernels=on),
+    "gram_mv": lambda op, x, y, on: op.gram_mv(y, use_kernels=on),
+    "fused_project": lambda op, x, y, on: op.fused_project(x, y, use_kernels=on),
+}
+
+
+@pytest.mark.parametrize("product", list(PRODUCTS))
+def test_kernel_product_without_packed_forms(product):
+    """Kernels on an operator without packed forms: on the CPU the product is
+    the plain ELL version, bit for bit; on any other device it refuses and
+    names ``with_packed``."""
+    run = PRODUCTS[product]
+    coo = generate_schenk_like(120, sparsity=0.95, seed=7)
+    kw = dict(with_transpose=True, with_gram=True)
+    cpu = PartitionedBSR.from_coo(coo, 4, balance=True, device="cpu", **kw)
+    rng = np.random.default_rng(5)
+    x = torch.as_tensor(rng.standard_normal((120, 3)), dtype=torch.float32)
+    y = torch.as_tensor(rng.standard_normal((4, cpu.p_pad, 3)), dtype=torch.float32)
+    torch.testing.assert_close(run(cpu, x, y, True), run(cpu, x, y, False), atol=0, rtol=0)
+    meta = PartitionedBSR.from_coo(coo, 4, device="meta", **kw)
+    with pytest.raises(ValueError, match="with_packed"):
+        run(meta, x.to("meta"), y.to("meta"), True)
+    assert meta.for_kernels(True) is meta  # packed forms are built on the card only
 
 
 @pytest.mark.parametrize("gram_solver", ["direct", "pcg"])
