@@ -10,14 +10,20 @@
    card at the main path's shapes (and the consensus update at the dense
    scale run's W (8, 2048, 4096), k = 64), and times the kernel, the plain
    version and one PyTorch library call computing the same function (a
-   yardstick only; the port never calls it); then times two design choices
+   yardstick only; the port never calls it); the loop's residual kernel
+   (``kernels/residual``) at the benchmark cells' shapes (s5 A (8, 2282,
+   4563), k = 32; t1 A (8, 1164, 2327), k = 256), the main path's and the
+   scale run's, within 1e-4 relative of a float64 residual, its library
+   yardstick cuBLAS's product plus ATen's sums (the plain version on the
+   card), and at k = 1 and in float64, which the plan keeps on the
+   library; then times two design choices
    of the consensus update, ungated: W's unaligned rows against a copy
    padded to a multiple of 4 columns, and its split target;
 4. drives the dense main path — ``repro_torch.launch.solve`` with
    ``--kernels --implicit-p`` at the paper's Table 1 shape m=9308, n=2327,
    k=32, 80 epochs, J=2 (tall: the upper trisolve) and J=8 (wide: the lower
    trisolve on Rᵀ) — with every launch counter zeroed just before and read
-   just after, and checks the solution against the kernels-off solve on the
+   just after (a residual call for x̄(0) and one an epoch), and checks the solution against the kernels-off solve on the
    card and the residual against the JAX package's CPU value; times a
    second, warm solve on each prepared solver and profiles one more with
    torch.profiler (device time by kernel, device busy share); then one
@@ -417,8 +423,10 @@ SPARSE_BATCHED_GATE = 1e-3
 # the quickstart's one trisolve and 100 epochs; solve_sparse --full's dapc
 # solve (dense projector: the trisolve only) and its batched k = 8 solve
 # (implicit projector: the trisolve and 95 epochs)
-QUICKSTART_LAUNCHES = {"trisolve": 1, "consensus_update": 100}
-SPARSE_LAUNCHES = {"trisolve": 2, "consensus_update": 95}
+# the examples solve k = 1 and 8 right-hand sides, whose residual the plan
+# keeps on the library's product: no residual launch
+QUICKSTART_LAUNCHES = {"trisolve": 1, "consensus_update": 100, "residual": 0}
+SPARSE_LAUNCHES = {"trisolve": 2, "consensus_update": 95, "residual": 0}
 # solve_sparse --full's batched solve in the JAX package on the CPU (its
 # prepare(A, method="dapc", num_blocks=4, materialize_p=False).solve(B, 95) on
 # the script's problem and B): the error the reference itself reaches there
@@ -433,10 +441,12 @@ EXAMPLE_TIMEOUT = 600
 TRISOLVE_SRC = "src/repro_torch/csrc/trisolve.cu"
 PROJECT_SRC = "src/repro_torch/csrc/project.cu"
 SPMM_SRC = "src/repro_torch/csrc/spmm.cu"
+RESIDUAL_SRC = "src/repro_torch/csrc/residual.cu"
 TRISOLVE_TPU = "src/repro/kernels/trisolve/trisolve.py:88"
 PROJECT_TPU = "src/repro/kernels/project/project.py:71,84"
 SPMM_TPU = "src/repro/kernels/spmm/spmm.py:75"
 SPMM_FUSED_TPU = "src/repro/kernels/spmm/spmm.py:140"
+RESIDUAL_TPU = "none: the reference's residual is plain jnp (src/repro/core/consensus.py:29)"
 
 
 def card_line() -> str:
@@ -648,6 +658,81 @@ def kernel_phase(torch, trisolve_ops, trisolve_ref, project_ops, project_ref, cu
     return results
 
 
+# (name, J, p, n, k, dtype name): the benchmark cells' shapes (s5, t1), the
+# main path's (Table 1 at J = 8 wide and J = 2 tall, k = 32), the scale
+# run's, and float64 and one right-hand side, which the plan keeps on the
+# library's product
+RESIDUAL_CASES = (
+    ("residual.s5", 8, 2282, 4563, 32, "float32"),
+    ("residual.t1", 8, 1164, 2327, 256, "float32"),
+    ("residual.table1_wide", 8, 1164, 2327, 32, "float32"),
+    ("residual.table1_tall", 2, 4654, 2327, 32, "float32"),
+    ("residual.scale", 8, 2048, 4096, 64, "float32"),
+    ("residual.t1.f64", 8, 1164, 2327, 32, "float64"),
+    ("residual.s5.k1", 8, 2282, 4563, 1, "float32"),
+)
+
+
+def residual_phase(torch, residual_ops, residual_ref):
+    """The loop's residual ‖A x̄ − b‖² (``kernels/residual``) against a
+    float64 residual of the same card inputs: b = A x in float64 and x̄ = x
+    + 1e-2 noise, so A x̄ − b cancels ~99% of A x̄, as in the loop. The
+    kernel's total and per-block sums within 1e-4 relative (float32: its
+    3xTF32 products are float32-accurate, and the cancellation leaves
+    ~2e-4 of their rounding in each entry; 1e-10 in float64), one launch a
+    call (none at k ≤ 8 or in float64, where the plan keeps the library's
+    product); timed
+    beside cuBLAS's product plus ATen's subtraction, squares and sums (the
+    plain version on the card, which is also the library yardstick) and
+    the gemm alone."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    results = {}
+    for name, J, p, n, k, dt_name in RESIDUAL_CASES:
+        dt = getattr(torch, dt_name)
+        a = torch.randn(J, p, n, generator=gen, device=dev, dtype=dt)
+        x = torch.randn(n, k, generator=gen, device=dev, dtype=dt)
+        b = (a.double() @ x.double()).to(dt)
+        xbar = x + 1e-2 * torch.randn(n, k, generator=gen, device=dev, dtype=dt)
+        want = residual_ref(a.double(), b.double(), xbar.double(), per_block=True)
+        before = residual_ops.launches
+        got = residual_ops.residual_sq(a, b, xbar, per_block=True)
+        calls = residual_ops.launches - before
+        plain = residual_ref(a, b, xbar, per_block=True)
+        torch.cuda.synchronize()
+
+        def rel(pair):
+            return max(float(((g.double() - w) / w).abs().max()) for g, w in zip(pair, want))
+
+        err, plain_err = rel(got), rel(plain)
+        tol = 1e-4 if dt == torch.float32 else 1e-10
+        plan = residual_ops.plan(J, p, n, k, dt)
+        ms = cuda_ms(torch, lambda: residual_ops.residual_sq(a, b, xbar), 20)
+        dev_ms = device_ms(torch, lambda: residual_ops.residual_sq(a, b, xbar), 20)
+        lib = cuda_ms(torch, lambda: residual_ref(a, b, xbar), 20)
+        lib_dev = device_ms(torch, lambda: residual_ref(a, b, xbar), 20)
+        gemm_dev = device_ms(torch, lambda: a @ xbar, 20)
+        s = a.element_size()
+        nbytes = s * (J * p * n + n * k + J * p * k + k)
+        flops = 2.0 * J * p * n * k + 3.0 * J * p * k
+        b_ms, b_by = bound(nbytes, flops, "float32_3xtf32" if dt == torch.float32 else dt_name)
+        results[name] = {
+            "shape": f"A ({J}, {p}, {n}) b ({J}, {p}, {k}) x̄ ({n}, {k}) {dt_name}",
+            "plan": "library (k <= 8 or float64)" if plan is None else f"config {plan}",
+            "max_rel_err": err, "plain_max_rel_err": plain_err, "tol": tol,
+            "ms": ms, "plain_ms": lib, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+            "device_ms": dev_ms, "library_device_ms": lib_dev, "gemm_device_ms": gemm_dev,
+        }
+        print(f"  {name:22s} {results[name]['plan']}: rel err {err:.3e} (tol {tol:.0e}; "
+              f"cuBLAS + ATen {plain_err:.3e})  kernel {ms:.4f} ms (device {dev_ms:.4f})  "
+              f"cuBLAS + ATen {lib:.4f} ms (device {lib_dev:.4f}; the gemm alone {gemm_dev:.4f})  "
+              f"bound {b_ms:.4f} ms ({b_by})")
+        check(err <= tol, f"{name}: relative error {err} above {tol}")
+        check(calls == (0 if plan is None else 1), f"{name}: {calls} launches for one call")
+        del a, x, b, xbar, want, got, plain
+    return results
+
+
 def design_checks(torch, project_ops, gen, factors):
     """Two choices of the consensus-update kernel, timed on the card (device
     time by CUDA-graph replay, k = 32), printed and not gated:
@@ -686,6 +771,7 @@ def reset_launches(ops) -> None:
     """Every kernel's launch count to 0."""
     ops.trisolve.launches = 0
     ops.project.launches = 0
+    ops.residual.launches = 0
     for key in ops.spmm.launches:
         ops.spmm.launches[key] = 0
 
@@ -700,7 +786,14 @@ def solver_epochs() -> float:
 
 def read_launches(ops) -> dict:
     return {"trisolve": ops.trisolve.launches, "consensus_update": ops.project.launches,
-            **ops.spmm.launches}
+            "residual": ops.residual.launches, **ops.spmm.launches}
+
+
+def residual_per_solve(launches) -> bool:
+    """A dense kernels-on solve of more than 8 columns calls the residual
+    kernel for x̄(0) and once an epoch: one trisolve and one consensus
+    update an epoch a solve."""
+    return launches["residual"] == launches["consensus_update"] + launches["trisolve"]
 
 
 def main_path_run(torch, launch_solve, ops, n, m, J, k, gate):
@@ -718,6 +811,8 @@ def main_path_run(torch, launch_solve, ops, n, m, J, k, gate):
           f"final_mse_max {record['final_mse_max']:.6e}")
     check(launches["trisolve"] >= 1 and launches["consensus_update"] >= 1,
           f"J={J}: a kernel of the path was not launched: {launches}")
+    check(residual_per_solve(launches),
+          f"J={J}: expected a residual call for x̄(0) and one an epoch: {launches}")
     check(res.x.shape == (n, k), f"J={J}: solution shape {res.x.shape}")
     check(bool(torch.isfinite(torch.as_tensor(res.x)).all()), f"J={J}: non-finite solution")
     warm = prep.solve(b, num_epochs=80, x_ref=x_ref).wall_seconds
@@ -1224,9 +1319,10 @@ def session_phase(torch, ops, path, make_problem, prepare):
     check(ratio <= SESSION_RATIO_GATE, f"{path}: session/independent epochs {ratio} above gate")
     if path == "dense":
         check(counted["trisolve"] == 1
-              and counted["consensus_update"] == counted["epochs_run"] < STREAM_CAP,
-              f"dense update: expected 1 trisolve and a consensus update per epoch run, "
-              f"fewer than {STREAM_CAP}: {counted}")
+              and counted["consensus_update"] == counted["epochs_run"] < STREAM_CAP
+              and residual_per_solve(counted),
+              f"dense update: expected 1 trisolve, a consensus update per epoch run, "
+              f"fewer than {STREAM_CAP}, and a residual call for x̄(0) and each epoch: {counted}")
     else:
         check(counted["spmm_fused_packed"] == STREAM_CAP and counted["spmm"] >= 1,
               f"matfree update: expected {STREAM_CAP} fused packed passes and spmm_packed for "
@@ -1410,9 +1506,11 @@ def poisson_phase(torch, ops, path, make_problem, serving, card):
           f"{path}: summed epochs-to-tol {total} not within 2% of the JAX package's {ref_total}")
     if path == "dense":
         check(launches["trisolve"] == nb
-              and launches["consensus_update"] == launches["epochs_run"] < STREAM_CAP * nb,
-              f"dense served batches: expected 1 trisolve per batch and a consensus update "
-              f"per epoch run, fewer than {STREAM_CAP} a batch: {launches} over {nb}")
+              and launches["consensus_update"] == launches["epochs_run"] < STREAM_CAP * nb
+              and residual_per_solve(launches),
+              f"dense served batches: expected 1 trisolve per batch, a consensus update "
+              f"per epoch run, fewer than {STREAM_CAP} a batch, and a residual call for x̄(0) "
+              f"and each epoch (batches padded to {SERVE_BATCH} columns): {launches} over {nb}")
     else:
         check(launches["spmm_fused_packed"] == STREAM_CAP * nb and launches["spmm"] >= nb,
               f"matfree served batches: expected {STREAM_CAP} fused packed passes and spmm_packed "
@@ -2118,8 +2216,9 @@ def probe_phase(torch, ops, mods, prepare, tri_case, proj_case):
           f"{float(off.final_mse):.6e}; ungated), max |x_kernels - x_plain| {diff:.3e} (tol "
           f"{tol:.1e}), launches {launches}")
     check(rec["mode"] == "wide", f"full-width probe mode {rec['mode']}")
-    check(launches["trisolve"] == 1 and launches["consensus_update"] == PROBE_EPOCHS,
-          f"full-width probe launches {launches}")
+    # one right-hand side: the plan keeps the residual on the library's gemv
+    check(launches["trisolve"] == 1 and launches["consensus_update"] == PROBE_EPOCHS
+          and launches["residual"] == 0, f"full-width probe launches {launches}")
     check(diff <= tol, f"full-width probe: kernels-on x differs from kernels-off by {diff}")
     prep = prepare(full["feats"], method="dapc", num_blocks=8, materialize_p=False,
                    use_kernels=True, device="cuda")
@@ -3335,6 +3434,7 @@ EXAMPLE_CHILD = (
     "import json, runpy, sys, time\n"
     "import numpy as np, torch\n"
     "from repro_torch.kernels.project import ops as project_ops\n"
+    "from repro_torch.kernels.residual import ops as residual_ops\n"
     "from repro_torch.kernels.trisolve import ops as trisolve_ops\n"
     "from repro_torch.training import checkpoint as ckpt_lib\n"
     "script, entry, out_path, runs = sys.argv[1:4] + [json.loads(sys.argv[4])]\n"
@@ -3350,13 +3450,14 @@ EXAMPLE_CHILD = (
     "for i, argv in enumerate(runs):\n"
     "    print(f'--- run {i}', flush=True)\n"
     "    saves.clear()\n"
-    "    trisolve_ops.launches = project_ops.launches = 0\n"
+    "    trisolve_ops.launches = project_ops.launches = residual_ops.launches = 0\n"
     "    torch.cuda.reset_peak_memory_stats()\n"
     "    t0 = time.perf_counter()\n"
     "    result = main(argv)\n"
     "    seconds = time.perf_counter() - t0\n"
     "    launches = {'trisolve': trisolve_ops.launches,\n"
-    "                'consensus_update': project_ops.launches}\n"
+    "                'consensus_update': project_ops.launches,\n"
+    "                'residual': residual_ops.launches}\n"
     "    arrays.update({f'{i}.{k}': v for k, v in result.items() if isinstance(v, np.ndarray)})\n"
     "    records.append({**{k: v for k, v in result.items() if not isinstance(v, np.ndarray)},\n"
     "                    'launches': launches, 'checkpoint_saves': list(saves),\n"
@@ -3657,6 +3758,8 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.project import ops as project_ops
     from repro_torch.kernels.project.ref import consensus_update_ref, project_ref
+    from repro_torch.kernels.residual import ops as residual_ops
+    from repro_torch.kernels.residual.ref import residual_sq_ref
     from repro_torch.kernels.spmm import ops as spmm_ops
     from repro_torch.kernels.spmm.ref import spmm_fused_packed_plain, spmm_packed_plain, spmm_plain
     from repro_torch.kernels.trisolve import ops as trisolve_ops
@@ -3669,7 +3772,8 @@ def main() -> int:
     from repro_torch.serving import decode
     from repro_torch.sparse import make_problem
 
-    ops = SimpleNamespace(trisolve=trisolve_ops, project=project_ops, spmm=spmm_ops)
+    ops = SimpleNamespace(trisolve=trisolve_ops, project=project_ops, spmm=spmm_ops,
+                          residual=residual_ops)
     t_start = time.perf_counter()
     card = card_line()
     print(f"card: {card}")
@@ -3688,6 +3792,8 @@ def main() -> int:
     print("kernel phase (kernel vs plain version on the card):")
     cases = kernel_phase(torch, trisolve_ops, trisolve_ref, project_ops, project_ref,
                          consensus_update_ref)
+    print("residual kernel phase (kernel vs a float64 residual on the card):")
+    cases.update(residual_phase(torch, residual_ops, residual_sq_ref))
 
     print("main path (repro_torch.launch.solve --kernels --implicit-p --device cuda):")
     runs = {J: main_path_run(torch, launch_solve, ops, 2327, 9308, J, 32, gate=True)
@@ -3804,6 +3910,13 @@ def main() -> int:
               ["consensus_update.wide.x_gamma", "consensus_update.wide.bf16"]),
         entry("consensus_update.scale", PROJECT_SRC, PROJECT_TPU,
               scale["launches"]["consensus_update"], "consensus_update.scale"),
+        entry("residual.table1_tall", RESIDUAL_SRC, RESIDUAL_TPU,
+              runs[2]["launches"]["residual"], "residual.table1_tall"),
+        entry("residual.table1_wide", RESIDUAL_SRC, RESIDUAL_TPU,
+              runs[8]["launches"]["residual"], "residual.table1_wide",
+              ["residual.s5", "residual.t1", "residual.t1.f64", "residual.s5.k1"]),
+        entry("residual.scale", RESIDUAL_SRC, RESIDUAL_TPU, scale["launches"]["residual"],
+              "residual.scale"),
         entry("spmm.matfree_2327", SPMM_SRC, SPMM_TPU, mf_small["launches"]["spmm"],
               "spmm.fwd.n2327", ["spmm.fwd.n2327.k1", "spmm.tile16x8"]),
         entry("spmm.matfree_16384", SPMM_SRC, SPMM_TPU, mf_big["launches"]["spmm"],
@@ -3819,6 +3932,8 @@ def main() -> int:
         entry("consensus_update.session_dense", PROJECT_SRC, PROJECT_TPU,
               sessions["dense"]["launches"]["consensus_update"], "consensus_update.wide",
               **on_session),
+        entry("residual.session_dense", RESIDUAL_SRC, RESIDUAL_TPU,
+              sessions["dense"]["launches"]["residual"], "residual.table1_wide", **on_session),
         entry("spmm.session_matfree", SPMM_SRC, SPMM_TPU, sessions["matfree"]["launches"]["spmm"],
               "spmm.fwd.n2327", **on_session),
         entry("spmm_fused_packed.session_matfree", SPMM_SRC, SPMM_FUSED_TPU,
@@ -3831,6 +3946,8 @@ def main() -> int:
         entry("consensus_update.served_dense", PROJECT_SRC, PROJECT_TPU,
               per_batch("dense", "consensus_update"), "consensus_update.wide",
               **on_served("dense")),
+        entry("residual.served_dense", RESIDUAL_SRC, RESIDUAL_TPU,
+              per_batch("dense", "residual"), "residual.table1_wide", **on_served("dense")),
         entry("spmm.served_matfree", SPMM_SRC, SPMM_TPU, per_batch("matfree", "spmm"),
               "spmm.fwd.n2327", **on_served("matfree")),
         entry("spmm_fused_packed.served_matfree", SPMM_SRC, SPMM_FUSED_TPU,

@@ -22,6 +22,8 @@ from typing import Callable
 
 import torch
 
+from repro_torch.kernels.residual.ref import residual_sq_ref
+
 # Under ``tol``, the epochs between two polls of the freeze mask. A poll is
 # one reduction and a one-byte copy to the host.
 POLL_EVERY = 4
@@ -38,19 +40,16 @@ _POLL_SLOTS = MAX_LEAD // POLL_EVERY  # polls in flight at most
 _poll_buffers = threading.local()
 
 
-def _match_rhs(bvecs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Broadcast unbatched (J, p) bvecs against batched (…, k) state."""
-    if x.ndim > bvecs.ndim - 1:
-        return bvecs[..., None]
-    return bvecs
-
-
-def block_residual_sq(blocks: torch.Tensor, bvecs: torch.Tensor, x: torch.Tensor):
+def block_residual_sq(blocks: torch.Tensor, bvecs: torch.Tensor, x: torch.Tensor,
+                      per_block: bool = False):
     """Global residual ||A x − b||² computed block-wise (no A reassembly).
 
-    Scalar for x (n,); per-system vector (k,) for a batched x (n, k)."""
-    r = blocks @ x - _match_rhs(bvecs, x)  # A_j x: (J, p) or (J, p, k)
-    return torch.sum(r * r, dim=(0, 1))
+    Scalar for x (n,); per-system vector (k,) for a batched x (n, k), with
+    an unbatched (J, p) bvecs broadcast over its columns. With
+    ``per_block`` the pair (that, the per-block sums (J,) or (J, k)). The
+    arithmetic is the residual kernel's plain version
+    (``kernels.residual.ref``)."""
+    return residual_sq_ref(blocks, bvecs, x, per_block)
 
 
 def _block_col(v, ndim: int):
@@ -136,6 +135,7 @@ def run_consensus(
     block_history: bool = False,  # per-block residual diagnostics
     *,
     stats: dict | None = None,  # out: epochs run, bytes the polls copied
+    residual_fn: Callable = block_residual_sq,  # block_residual_sq's signature
 ):
     """Paper eqs. (5)–(7). Returns (x̄_final, history dict).
 
@@ -160,6 +160,10 @@ def run_consensus(
     one the full cap gives, bit for bit. A column that never freezes runs
     the cap.
 
+    ``residual_fn`` computes the residuals, with ``block_residual_sq``'s
+    signature and results (the dense solver passes the residual kernel's
+    wrapper when it runs its kernels).
+
     ``stats``, a dict, receives ``epochs`` (the epochs run), ``poll_bytes``
     (the bytes the polls copied to the host; none on a CPU device, where
     the flag is read in place) and ``lead_waits`` (the times the host
@@ -178,7 +182,7 @@ def run_consensus(
     if xbar0 is None:
         xbar0 = torch.mean(x0s, dim=0)  # eq. (5)
     elif xbar0.ndim < x0s.ndim - 1:
-        xbar0 = torch.broadcast_to(xbar0[..., None], x0s.shape[1:])
+        xbar0 = torch.broadcast_to(xbar0[..., None], x0s.shape[1:]).contiguous()
     if tol is not None and (blocks is None or bvecs is None):
         raise ValueError("tol early exit needs (blocks, bvecs) for residuals")
     if block_history and (blocks is None or bvecs is None):
@@ -192,12 +196,10 @@ def run_consensus(
             out["mse"] = torch.mean(d * d, dim=0)
         if blocks is not None and bvecs is not None:
             if block_history:
-                r = blocks @ xbar - _match_rhs(bvecs, xbar)
-                per_block = torch.sum(r * r, dim=1)  # (J,) or (J, k)
-                out["block_residual_sq"] = per_block
-                out["residual_sq"] = torch.sum(per_block, dim=0)
+                total, out["block_residual_sq"] = residual_fn(blocks, bvecs, xbar, per_block=True)
+                out["residual_sq"] = total
             else:
-                out["residual_sq"] = block_residual_sq(blocks, bvecs, xbar)
+                out["residual_sq"] = residual_fn(blocks, bvecs, xbar)
         return out
 
     init_metrics = metrics(xbar0)

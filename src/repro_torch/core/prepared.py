@@ -36,6 +36,7 @@ from repro_torch.core.partition import (
     partition_matrix,
 )
 from repro_torch.device import resolve_device, synchronize
+from repro_torch.kernels.residual import ops as residual_ops
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.sparse.matrix import COOMatrix, PlanMixer, RowMixer
@@ -471,12 +472,13 @@ class PreparedSolver:
             apply_fn = apc.make_apply(operand)
         else:
             apply_fn = dapc.make_apply(operand, False, use_kernels=kind == "kernels")
+        residual_fn = residual_ops.residual_sq if self.use_kernels else consensus.block_residual_sq
         k = bvecs.shape[2] if bvecs.ndim == 3 else 1
         with phase("solver.epochs", epochs=num_epochs, k=k, tol=kwargs.get("tol")):
             return consensus.run_consensus(
                 x0s, apply_fn, gamma, eta, num_epochs,
                 x_ref=ref, blocks=self.blocks, bvecs=bvecs, xbar0=xbar0, **kwargs,
-                stats=stats,
+                stats=stats, residual_fn=residual_fn,
             )
 
     def _operand(self, arr):

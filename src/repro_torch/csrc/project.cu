@@ -101,25 +101,6 @@ template <int KT> struct Tile {
   static constexpr int SMEM = 4 * (RING > WK * BT * PR ? RING : WK * BT * PR);  // 59,392 / 75,776 B
 };
 
-// ---- 3xTF32 ----------------------------------------------------------------
-
-// a = hi + lo to 21 bits: hi is a's bits plus half a TF32 unit, which the
-// tensor core truncates to a rounded to nearest (ties away, as cvt.rna);
-// lo = a - tf32(a) is exact in f32 and truncated to TF32 by the same rule.
-// Three integer/f32 operations, where two cvt.rna.tf32.f32 would be slower.
-__device__ __forceinline__ void split(float a, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(a) + 0x1000u;
-  lo = __float_as_uint(a - __uint_as_float(hi & 0xffffe000u));
-}
-
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // One stage of the warp's (MT * 16) x (NT * 8) tile over its STEPS k8 steps
 // of the stage (k8 step s * WK + wk). The tensor core rounds toward zero
 // when it accumulates, so the stage's products go to a zeroed fragment that
@@ -178,28 +159,6 @@ __device__ __forceinline__ void stage_mma(float (&acc)[Tile<KT>::MT][Tile<KT>::N
 }
 
 // ---- global -> shared ------------------------------------------------------
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d), "l"(src),
-               "r"(ok ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
 
 // Copies ROWS x COLS tiles of a row-major matrix (element T, row stride ld)
 // into f32 shared-memory tiles of pitch P, zero outside the matrix. A
@@ -313,22 +272,6 @@ __device__ __forceinline__ void block_sum(float* smem,
     }
     emit(e, v);
   }
-}
-
-// After every thread stored its part of the block's partial tile: true in
-// the last of `splits` blocks of the tile to arrive, which resets the ticket
-// to 0 for the next launch.
-__device__ __forceinline__ bool last_arrival(int* ticket, int splits) {
-  __shared__ int last;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    last = atomicAdd(ticket, 1) == splits - 1;
-    if (last) atomicExch(ticket, 0);
-  }
-  __syncthreads();
-  if (last) __threadfence();
-  return last;
 }
 
 // The sum over s = 0 .. splits-1, in that order, of float4 `e` of the

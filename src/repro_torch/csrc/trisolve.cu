@@ -79,15 +79,6 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src, bool src_ok
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
 // Start copying tile[s * (TB + 1) + r] = op(R)(row0 + r, col0 + s), zero
 // outside [0, n). Consecutive threads take consecutive elements of R's
 // contiguous axis; the +1 pad keeps the transposed store free of bank

@@ -27,7 +27,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("trisolve", "project", "spmm")
+SOURCES = ("trisolve", "project", "spmm", "residual")
 
 # dtype codes shared with csrc/common.cuh (enum DTypeCode)
 DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}

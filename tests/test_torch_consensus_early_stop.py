@@ -14,8 +14,9 @@ import pytest
 import torch
 
 from repro_torch.core import consensus, dapc, prepare, prepared
-from repro_torch.core.consensus import _block_col, _match_rhs, block_residual_sq
+from repro_torch.core.consensus import _block_col, block_residual_sq
 from repro_torch.core.partition import block_rhs
+from repro_torch.kernels.residual.ref import match_rhs
 
 M, N, J, K, CAP, TOL = 200, 64, 8, 4, 200, 1.0
 KW = dict(num_blocks=J, mode="wide", materialize_p=False, use_kernels=True)
@@ -30,7 +31,7 @@ def oracle(x0s, apply_fn, gamma, eta, num_epochs, x_ref=None, blocks=None, bvecs
             d = xb - (x_ref[..., None] if xb.ndim > x_ref.ndim else x_ref)
             out["mse"] = torch.mean(d * d, dim=0)
         if block_history:
-            r = blocks @ xb - _match_rhs(bvecs, xb)
+            r = blocks @ xb - match_rhs(bvecs, xb)
             out["block_residual_sq"] = per_block = torch.sum(r * r, dim=1)
             out["residual_sq"] = torch.sum(per_block, dim=0)
         else:
